@@ -1,0 +1,23 @@
+"""constdb_tpu_torch: the PyTorch/CUDA port of constdb-tpu.
+
+A second package beside `constdb_tpu/` (the JAX reference, unchanged).
+It runs the snapshot catch-up merge, `TorchMergeEngine.merge_many` then
+`flush`, on one NVIDIA H100, with hand-written CUDA kernels for the
+aligned replica fold and the counter-sum re-derivation.  It imports
+torch, numpy and the standard library only: never jax, never
+`constdb_tpu`.  JAX-free modules of the reference are kept here as
+copies.
+
+Layer map:
+  crdt/      CRDT conflict-resolution semantics (copy)
+  store/     columnar keyspace (copy)
+  utils/     pure-Python staging tables, device resolution
+  engine/    MergeEngine boundary: CPU reference + TorchMergeEngine
+  ops/       bulk scatter ops, plain folds, CUDA kernel wrappers
+  csrc/      CUDA C++ kernels (sm_90a)
+  persist/   catch-up chunker
+  convert    reference state carried across as numpy/lists
+  workload   catch-up workload generator and oracle
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,51 @@
+"""The port's environment knobs and engine factory.
+
+Every knob the port reads is named CONSTDB_TORCH_* and listed in
+ENV_REGISTRY (the reference package's registry is its own).
+`build_engine(kind)` is the twin of the reference's conf.build_engine,
+without its fallbacks: asking for the CUDA engine on a host without a
+usable card raises.
+"""
+
+from __future__ import annotations
+
+import os
+
+ENV_REGISTRY = {
+    "CONSTDB_TORCH_PIPELINE": "0 = stage the merge families serially on "
+                              "the main thread (default: staging pool)",
+    "CONSTDB_TORCH_STAGE_WORKERS": "staging pool size (default: spare "
+                                   "cores, at most 4)",
+    "CONSTDB_TORCH_POOL_FLUSH_MB": "resident win-pool bytes that trigger "
+                                   "an automatic flush (default 1536)",
+}
+
+
+def _env_read(name: str):
+    if name not in ENV_REGISTRY:
+        raise KeyError(f"unregistered environment knob {name}")
+    return os.environ.get(name)
+
+
+def env_int(name: str, default: int) -> int:
+    v = _env_read(name)
+    return default if v is None or v == "" else int(v)
+
+
+def env_flag(name: str, default: bool) -> bool:
+    """'0' (and only '0') is false when the variable is set."""
+    v = _env_read(name)
+    return default if v is None or v == "" else v != "0"
+
+
+def build_engine(kind: str, device=None):
+    """"cuda": the resident TorchMergeEngine on the card (raises without
+    one; `device` may name "cpu" to run its plain versions on the host).
+    "cpu": the CPU reference engine."""
+    if kind == "cuda":
+        from .engine.cuda import TorchMergeEngine
+        return TorchMergeEngine(resident=True, device=device)
+    if kind == "cpu":
+        from .engine.cpu import CpuMergeEngine
+        return CpuMergeEngine()
+    raise ValueError(f"unknown engine kind {kind!r} (cuda | cpu)")

@@ -1,0 +1,6 @@
+from .base import ColumnarBatch, MergeEngine, MergeStats, batch_from_keyspace
+from .cpu import CpuMergeEngine
+from .cuda import TorchMergeEngine
+
+__all__ = ["ColumnarBatch", "MergeEngine", "MergeStats", "batch_from_keyspace",
+           "CpuMergeEngine", "TorchMergeEngine"]

@@ -1,0 +1,428 @@
+"""Vectorized host merge for op-stream micro-batches.
+
+The steady-state replication coalescer (replica/coalesce.py) lands
+micro-batches of a few hundred to a few thousand rows every few
+milliseconds.  At that scale the device scatter path pays more in
+dispatch fixed costs (kernel launches, transfers, jit-cache probes) than
+the merge itself is worth — on a CPU backend, dozens of times more.
+This module is the third placement strategy next to `bulk` and
+`scatter` (engine/cuda.py picks it for small non-unique batches): the
+same CRDT reductions as the device kernels, computed with numpy
+sort+reduceat group reductions at C speed, written straight into the
+host columns.
+
+Semantics are bit-identical to engine/cpu.py (the per-row reference):
+every reduction below is the associative lexicographic/plain max from
+crdt/semantics.py, so folding intra-batch duplicates first and merging
+the winner against the store equals applying the rows in order —
+differential-tested in tests/test_coalesce_apply.py.
+
+GC parity: element rows whose del_t advanced past add_t enqueue
+tombstones exactly like KeySpace.elem_merge / the device flush path do;
+counter sums update incrementally (the same delta rule as
+KeySpace.counter_merge_slot), never by an O(table) recompute.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..crdt import semantics as S
+from ..store.keyspace import KeySpace
+from .base import ColumnarBatch, MergeStats
+
+_I64 = np.int64
+
+# row ceiling under which the vectorized host strategy beats both the
+# per-row loop (past a couple dozen rows) and a device scatter
+# (dispatch fixed costs dominate at micro-batch scale) — shared by
+# TorchMergeEngine.HOST_SCATTER_MAX and CpuMergeEngine.merge_many
+HOST_MICRO_MAX = 1 << 15
+# ...and the row FLOOR under which the per-row reference loop beats the
+# vectorized pass's numpy fixed costs (CpuMergeEngine.merge_many routes
+# tiny runs — a read-heavy pipeline's interleaved write clusters — back
+# onto the loop; byte-identical by the differential pin, r18)
+HOST_ROW_MIN = 24
+
+
+def _group_last(sorted_keys: np.ndarray) -> np.ndarray:
+    """Indices (into the sorted array) of each group's LAST element."""
+    return np.nonzero(np.append(sorted_keys[1:] != sorted_keys[:-1],
+                                True))[0]
+
+
+def _group_first(sorted_keys: np.ndarray) -> np.ndarray:
+    return np.nonzero(np.append(True, sorted_keys[1:] != sorted_keys[:-1]))[0]
+
+
+# ------------------------------------------------- duplicate-slot folds
+# A raw op-stream batch may hit the same slot many times; every reduction
+# below folds those duplicates to one winner per slot with the exact
+# associative rule from crdt/semantics.py, so "fold then merge once"
+# equals "apply in order".  These are THE shared fold implementations:
+# the host strategies below use them in place, and the resident device
+# path (engine/cuda.py micro merges) folds with the very same functions
+# before scattering the unique winners into resident planes.
+
+
+def fold_env_rows(kids: np.ndarray, mat: np.ndarray):
+    """-> (unique kids, [U, 4] per-column max)."""
+    order = np.argsort(kids, kind="stable")
+    k_s = kids[order]
+    first = _group_first(k_s)
+    return k_s[first], np.maximum.reduceat(mat[order], first, axis=0)
+
+
+def fold_pair_rows(rows: np.ndarray, primary: np.ndarray,
+                   secondary: np.ndarray):
+    """Lexicographic (primary, secondary) max per row group ->
+    (unique rows, win primary, win secondary, winning source index).
+    Registers fold (t, node); counter pairs fold (uuid, val) /
+    (base_t, base)."""
+    order = np.lexsort((secondary, primary, rows))
+    r_s = rows[order]
+    last = _group_last(r_s)
+    src = order[last]
+    return r_s[last], primary[src], secondary[src], src
+
+
+def fold_el_rows(rows: np.ndarray, at: np.ndarray, an: np.ndarray,
+                 dt: np.ndarray):
+    """Element fold: add side = lexicographic (add_t, add_node) winner,
+    del side = plain max -> (unique rows, win add_t, win add_node,
+    max del_t, winning source index)."""
+    order = np.lexsort((an, at, rows))
+    r_s = rows[order]
+    first = _group_first(r_s)
+    last = _group_last(r_s)
+    src = order[last]
+    return (r_s[last], at[src], an[src],
+            np.maximum.reduceat(dt[order], first), src)
+
+
+def _merge_env(store: KeySpace, kids: np.ndarray, mat: np.ndarray) -> None:
+    """Envelope plane: per-column max over (possibly repeated) kids."""
+    uniq, red = fold_env_rows(kids, mat)
+    keys = store.keys
+    for i, name in enumerate(("ct", "mt", "dt", "expire")):
+        col = keys.col(name)
+        cur = col[uniq]
+        np.maximum(cur, red[:, i], out=cur)
+        col[uniq] = cur
+
+
+def _merge_reg(store: KeySpace, kids: np.ndarray, t: np.ndarray,
+               node: np.ndarray, vals: list) -> None:
+    """Register plane: lexicographic (t, node) LWW; the winner carries
+    its value (semantics.merge_register)."""
+    wk, wt, wn, src = fold_pair_rows(kids, t, node)
+    cur_t = store.keys.rv_t[wk]
+    cur_n = store.keys.rv_node[wk]
+    win = (wt > cur_t) | ((wt == cur_t) & (wn > cur_n))
+    if not win.any():
+        return
+    rows = wk[win]
+    store.keys.rv_t[rows] = wt[win]
+    store.keys.rv_node[rows] = wn[win]
+    reg_val = store.reg_val
+    for r, i in zip(rows.tolist(), src[win].tolist()):
+        reg_val[r] = vals[i]
+
+
+def _resolve_cnt_rows(store: KeySpace, kids: np.ndarray,
+                      nodes: np.ndarray) -> np.ndarray:
+    """(kid, node) -> store cnt rows, creating neutral slots for misses
+    (host twin of TorchMergeEngine._resolve_cnt_rows)."""
+    out = np.empty(len(kids), dtype=_I64)
+    if not len(kids):
+        return out
+    first = int(nodes[0])
+    if (nodes == first).all():
+        groups = [(first, slice(None))]
+    else:
+        uniq_nodes, inv = np.unique(nodes, return_inverse=True)
+        groups = [(int(nd), np.nonzero(inv == i)[0])
+                  for i, nd in enumerate(uniq_nodes.tolist())]
+    for node, sel in groups:
+        k = kids[sel]
+        got = store.cnt_rows_lookup(store.rank_of(node), k)
+        miss = got < 0
+        if miss.any():
+            mk = k[miss]
+            uk = np.unique(mk)
+            new_rows = store.cnt.append_block(
+                len(uk), kid=uk, node=node, val=0,
+                uuid=S.NEUTRAL_T, base=0, base_t=S.NEUTRAL_T)
+            store.cnt_rows_assign(store.rank_of(node), uk, new_rows)
+            got[miss] = new_rows[np.searchsorted(uk, mk)]
+        out[sel] = got
+    return out
+
+
+def _apply_cnt_pair(store: KeySpace, rows: np.ndarray, vals: np.ndarray,
+                    ts: np.ndarray, vcol: str, tcol: str,
+                    sign: int) -> None:
+    """One (value @ time) LWW pair over slot rows (max value on exact
+    time tie — semantics.merge_counter_slot), with the incremental
+    per-key sum delta (`sign`: +1 for the total pair, -1 for the base
+    pair, mirroring KeySpace.counter_merge_slot)."""
+    wr, wt, wv, _src = fold_pair_rows(rows, ts, vals)
+    cv = store.cnt.col(vcol)
+    ct = store.cnt.col(tcol)
+    cur_v = cv[wr]
+    cur_t = ct[wr]
+    win = (wt > cur_t) | ((wt == cur_t) & (wv > cur_v))
+    if not win.any():
+        return
+    rows_w = wr[win]
+    dv = wv[win] - cur_v[win]
+    cv[rows_w] = wv[win]
+    ct[rows_w] = wt[win]
+    changed = np.nonzero(dv)[0]
+    if not len(changed):
+        return
+    kidc = store.cnt.kid[rows_w[changed]]
+    delta = dv[changed] * sign
+    uk, inv = np.unique(kidc, return_inverse=True)
+    amax = int(np.abs(delta).max())
+    if amax and len(delta) * amax < (1 << 53):
+        # float64 bincount is exact under 2^53 (the same guard as
+        # KeySpace.recompute_counter_sums)
+        sums = np.bincount(inv, weights=delta,
+                           minlength=len(uk)).astype(_I64)
+    else:
+        sums = np.zeros(len(uk), dtype=_I64)
+        np.add.at(sums, inv, delta)
+    store.keys.cnt_sum[uk] += sums
+
+
+def _resolve_el_rows(store: KeySpace, kids: np.ndarray,
+                     members: list) -> np.ndarray:
+    """(kid, member) -> store el rows, creating neutral rows for misses
+    (host twin of the row-creation half of _stage_elem_rows)."""
+    mids, _ = store.member_index.get_or_insert_batch(members)
+    combos = (kids << KeySpace.MEMBER_BITS) | mids
+    rn0 = store.el.n
+    rows, n_new = store.el_index.get_or_assign_batch(combos, next_val=rn0)
+    if n_new:
+        created = np.nonzero(rows >= rn0)[0]
+        uniq_rows, first = np.unique(rows[created], return_index=True)
+        pos = created[first]
+        if len(uniq_rows) != n_new or int(uniq_rows[0]) != rn0 or \
+                int(uniq_rows[-1]) != rn0 + n_new - 1:
+            span = f"[{int(uniq_rows[0])}, {int(uniq_rows[-1])}]" \
+                if len(uniq_rows) else "[]"
+            raise RuntimeError(
+                f"el combo index issued non-contiguous rows {span} "
+                f"(n={len(uniq_rows)}) for block [{rn0}, {rn0 + n_new - 1}]")
+        store.el.append_block(n_new, kid=kids[pos], add_t=0, add_node=0,
+                              del_t=0)
+        store.el_member.extend(map(members.__getitem__, pos.tolist()))
+        store.el_val.extend([None] * n_new)
+    return rows
+
+
+def _merge_el(store: KeySpace, rows: np.ndarray, at: np.ndarray,
+              an: np.ndarray, dt: np.ndarray, vals) -> None:
+    """Element plane: add-side lexicographic (t, node) LWW carrying the
+    value, del-side plain max, newly-dead rows queued for GC
+    (semantics.merge_elem / KeySpace.elem_merge)."""
+    wr, wat, wan, d_red, win_src = fold_el_rows(rows, at, an, dt)
+    old_at = store.el.add_t[wr]
+    old_an = store.el.add_node[wr]
+    old_dt = store.el.del_t[wr]
+    win = (wat > old_at) | ((wat == old_at) & (wan > old_an))
+    new_at = np.where(win, wat, old_at)
+    new_dt = np.maximum(old_dt, d_red)
+    store.el.add_t[wr] = new_at
+    store.el.add_node[wr] = np.where(win, wan, old_an)
+    store.el.del_t[wr] = new_dt
+    # winner-carried values (None included — a winning valueless write
+    # CLEARS the slot); set members are valueless on both sides, so only
+    # value-carrying encodings pay the assignment loop.  Three equality
+    # masks beat np.isin's sort machinery at micro-batch scale.
+    enc = store.keys.enc[store.el.kid[wr]]
+    val_enc = enc == S.VALUE_ENCS[0]
+    for e in S.VALUE_ENCS[1:]:
+        val_enc |= enc == e
+    vsel = win & val_enc
+    if vsel.any():
+        el_val = store.el_val
+        src = win_src[vsel]
+        if vals is None:
+            for r in wr[vsel].tolist():
+                el_val[r] = None
+        else:
+            for r, i in zip(wr[vsel].tolist(), src.tolist()):
+                el_val[r] = vals[i]
+    newly = np.nonzero((new_at < new_dt) & (new_dt > old_dt))[0]
+    if len(newly):
+        rws = wr[newly]
+        kids = store.el.kid[rws].tolist()
+        store.enqueue_garbage_bulk(
+            new_dt[newly].tolist(),
+            list(map(store.key_bytes.__getitem__, kids)),
+            list(map(store.el_member.__getitem__, rws.tolist())))
+
+
+def resolve_keys(store: KeySpace, batch: ColumnarBatch, st: MergeStats,
+                 resident: bool = False) -> np.ndarray:
+    """batch key position -> local kid (-1 on type conflict); bulk-creates
+    missing keys with the batch envelope (max-merge later is identity).
+    The ONE implementation of key resolution for both engines:
+    `TorchMergeEngine._resolve_keys` delegates here with `resident=True`
+    when it holds device mirrors, and host-only callers (engine/cpu.py
+    merge_many, the serve/stream coalescers' flushes) use the default."""
+    import logging
+
+    n = batch.n_keys
+    st.keys_seen += n
+    if n == 0:
+        return np.zeros(0, dtype=_I64)
+    n0 = store.keys.n
+    # one native batch call: intern every key; new ids ARE the new rows
+    kid_of, n_new = store.key_index.get_or_insert_batch(batch.keys)
+    if n_new:
+        # a raw op-stream batch may repeat a key: append one row per new
+        # id, values from its first occurrence (np.unique's sorted order
+        # IS insertion order — interner ids grow with first occurrence)
+        created = np.nonzero(kid_of >= n0)[0]
+        uniq_ids, first = np.unique(kid_of[created], return_index=True)
+        pos = created[first]
+        # interner ids must be exactly the next table block — checked
+        # BEFORE the append mutates the table (CHECK-THEN-MUTATE: a
+        # failure after append_block would strand half-created rows;
+        # and a real raise, because python -O strips asserts)
+        if len(uniq_ids) != n_new or int(uniq_ids[0]) != n0 or \
+                int(uniq_ids[-1]) != n0 + n_new - 1:
+            span = f"[{int(uniq_ids[0])}, {int(uniq_ids[-1])}]" \
+                if len(uniq_ids) else "[]"
+            raise RuntimeError(
+                f"key interner issued non-contiguous new ids {span} "
+                f"(n={len(uniq_ids)}) for block [{n0}, {n0 + n_new - 1}]")
+        store.keys.append_block(
+            n_new,
+            enc=batch.key_enc[pos], ct=batch.key_ct[pos], mt=0,
+            dt=batch.key_dt[pos], expire=0, rv_t=0, rv_node=0, cnt_sum=0)
+        store.key_bytes.extend(map(batch.keys.__getitem__, pos.tolist()))
+        store.reg_val.extend([None] * n_new)
+        st.keys_created += n_new
+        if resident:
+            # created rows carry batch first-occurrence values on the
+            # host but neutral zeros on the device mirror; the batch rows
+            # merging in reconstruct them, EXCEPT for conflict-skipped
+            # duplicates — clear host values so both sides start neutral
+            store.keys.ct[uniq_ids] = 0
+            store.keys.dt[uniq_ids] = 0
+    # conflict check over ALL positions: duplicate occurrences of a key
+    # created above must also match the enc the first occurrence chose
+    bad = np.nonzero(store.keys.enc[kid_of] != batch.key_enc)[0]
+    if len(bad):
+        log = logging.getLogger(__name__)
+        for i in bad:
+            log.error("type conflict merging key %r: local=%s incoming=%s",
+                      batch.keys[i], int(store.keys.enc[kid_of[i]]),
+                      int(batch.key_enc[i]))
+        st.type_conflicts += len(bad)
+        kid_of[bad] = -1
+    return kid_of
+
+
+def merge_host_batches(store: KeySpace, batches: list) -> MergeStats:
+    """Resolve + merge a group of op-stream micro-batches entirely on the
+    host (no engine object involved).  The fast path for host-only
+    engines: one vectorized pass per batch instead of a per-row loop."""
+    st = MergeStats()
+    for b in batches:
+        merge_host_batch(store, b, resolve_keys(store, b, st), st)
+    return st
+
+
+def merge_host_batch(store: KeySpace, batch: ColumnarBatch,
+                     kid_of: np.ndarray, st: MergeStats) -> None:
+    """Merge one columnar batch into the host store, fully vectorized.
+    `kid_of` is the caller's key resolution (the engine's memoized
+    `_resolve_keys`).  Duplicate rows per slot are folded by associative
+    group reductions, so raw op-stream batches
+    (`rows_unique_per_slot=False`) are first-class here."""
+    valid = kid_of >= 0
+    all_valid = bool(valid.all())
+    if batch.n_keys:
+        kids = kid_of if all_valid else kid_of[valid]
+        if len(kids):
+            mat = np.stack([batch.key_ct, batch.key_mt, batch.key_dt,
+                            batch.key_expire], axis=-1)
+            _merge_env(store, kids, mat if all_valid else mat[valid])
+
+        from ..utils.tables import nonnull_mask
+        em = (kid_of >= 0) & (batch.key_enc == S.ENC_BYTES) & \
+            nonnull_mask(batch.reg_val)
+        idx = np.nonzero(em)[0]
+        if len(idx):
+            _merge_reg(store, kid_of[idx], batch.reg_t[idx],
+                       batch.reg_node[idx],
+                       list(map(batch.reg_val.__getitem__, idx.tolist())))
+
+    if len(batch.cnt_ki):
+        kid_arr = kid_of[batch.cnt_ki]
+        keep = np.nonzero(kid_arr >= 0)[0]
+        if len(keep):
+            st.counter_rows += len(keep)
+            sel = slice(None) if len(keep) == len(kid_arr) else keep
+            rows = _resolve_cnt_rows(store, kid_arr[sel], batch.cnt_node[sel])
+            _apply_cnt_pair(store, rows, batch.cnt_val[sel],
+                            batch.cnt_uuid[sel], "val", "uuid", 1)
+            bt = batch.cnt_base_t[sel]
+            if not (bt == S.NEUTRAL_T).all():
+                _apply_cnt_pair(store, rows, batch.cnt_base[sel], bt,
+                                "base", "base_t", -1)
+
+    if len(batch.el_ki):
+        kid_arr = kid_of[batch.el_ki]
+        keep = np.nonzero(kid_arr >= 0)[0]
+        if len(keep):
+            st.elem_rows += len(keep)
+            if len(keep) == len(kid_arr):
+                sel = slice(None)
+                members = batch.el_member
+                vals = batch.el_val
+            else:
+                sel = keep
+                members = list(map(batch.el_member.__getitem__,
+                                   keep.tolist()))
+                vals = list(map(batch.el_val.__getitem__, keep.tolist()))
+            rows = _resolve_el_rows(store, kid_arr[sel], members)
+            _merge_el(store, rows, batch.el_add_t[sel],
+                      batch.el_add_node[sel], batch.el_del_t[sel], vals)
+
+    if len(batch.tns_ki):
+        merge_host_tns(store, batch, kid_of, st)
+
+    for i, key in enumerate(batch.del_keys):
+        store.record_key_delete(key, int(batch.del_t[i]))
+
+
+def merge_host_tns(store: KeySpace, batch: ColumnarBatch,
+                   kid_of: np.ndarray, st: MergeStats) -> None:
+    """Tensor plane, HOST strategy: the per-row reference loop
+    (KeySpace.tensor_merge_row — the ONE slot-merge implementation; the
+    op path and the CPU engine run the same calls).  Tensor rows are
+    few and payload-heavy, so the per-row Python here IS the measured
+    host baseline the resident device path (engine/cuda.py
+    _merge_micro_tns) must beat — and the two are differential-tested
+    byte-identical."""
+    kid_arr = kid_of[batch.tns_ki]
+    merge_row = store.tensor_merge_row
+    nodes = batch.tns_node
+    uuids = batch.tns_uuid
+    cnts = batch.tns_cnt
+    cfgs = batch.tns_cfg
+    payloads = batch.tns_payload
+    kept = 0
+    for i, kid in enumerate(kid_arr.tolist()):
+        if kid < 0:
+            continue
+        kept += 1
+        merge_row(kid, int(nodes[i]), int(uuids[i]), int(cnts[i]),
+                  cfgs[i], payloads[i])
+    st.tensor_rows += kept

@@ -1,0 +1,237 @@
+"""Hand-written Hopper kernels: build, load and launch.
+
+Three CUDA C++ kernels replace the reference package's Pallas kernels on
+the snapshot catch-up path (constdb_tpu/ops/pallas_dense.py):
+
+  * K1 `merge_elems`    (csrc/merge_fold.cu)  <- pallas_dense.merge_elems
+  * K2 `merge_counters` (csrc/merge_fold.cu)  <- pallas_dense.merge_counters
+  * K4 `segment_sum`    (csrc/segment_sum.cu) <- pallas_dense.segment_sum
+
+Build: each source compiles with `nvcc -shared` for sm_90a into its own
+shared library with a plain C interface, at first use, under
+`constdb_tpu_torch/_build/<hash of sources and flags>/`; all sources
+compile in parallel (one nvcc each).  The libraries load with ctypes and
+launch on PyTorch's current stream with raw device pointers.  A failed
+build or a failed launch raises: nothing falls back.
+
+Each wrapper takes its plain PyTorch version (ops/dense.py) only when the
+tensors it was given lie on the CPU.  On CUDA tensors it launches the
+kernel, counts the launch in `LAUNCHES`, or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+from . import dense as D
+
+__all__ = ["LAUNCHES", "SOURCES", "build", "merge_elems", "merge_lww",
+           "merge_counters", "segment_sum", "reset_launches"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
+# library name -> source file; one nvcc per source
+SOURCES = {"merge_fold": "merge_fold.cu", "segment_sum": "segment_sum.cu"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES = {"merge_elems": 0, "merge_counters": 0, "segment_sum": 0}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}   # library name -> nvcc's output (ptxas -v)
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "constdb_merge_elems": [_P, _P, _P, ctypes.c_int, ctypes.c_int64,
+                            _P, _P, _P, _P, _P],
+    "constdb_merge_counters": [_P, _P, ctypes.c_int, ctypes.c_int64,
+                               _P, _P, _P],
+    "constdb_segment_sum": [_P, _P, ctypes.c_int64, ctypes.c_int64, _P, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(SOURCES.values()):
+        h.update(src.encode())
+        h.update((_CSRC / src).read_bytes())
+    return _BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> float:
+    """Compile every kernel library that is not built yet (one nvcc per
+    source, all started together) and load them.  -> seconds spent."""
+    t0 = time.perf_counter()
+    with _lock:
+        if len(_libs) == len(SOURCES):
+            return 0.0
+        out_dir = _build_dir()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name, src in SOURCES.items():
+            so = out_dir / f"lib{name}.so"
+            if so.exists():
+                continue
+            tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+            procs[name] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp, so)
+        failed = []
+        for name, (p, tmp, so) in procs.items():
+            out, _ = p.communicate()
+            BUILD_LOG[name] = out
+            if p.returncode != 0:
+                failed.append(f"{name} (nvcc exit {p.returncode}):\n{out}")
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+        for name in SOURCES:
+            lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+            for fn, argtypes in _SIGNATURES.items():
+                if hasattr(lib, fn):
+                    f = getattr(lib, fn)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+            lib.constdb_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.constdb_cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+    return time.perf_counter() - t0
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        build()
+    return _libs[name]
+
+
+def _check_rc(lib: ctypes.CDLL, kernel: str, rc: int) -> None:
+    if rc != 0:
+        msg = lib.constdb_cuda_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                           f"{msg} (cudaError {rc})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(kernel: str, *tensors: torch.Tensor, dtype=torch.int64) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{kernel}: tensors on {t.device} and {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: inputs must be contiguous")
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+
+
+def _stack_shape(kernel: str, *stacks: torch.Tensor) -> tuple[int, int]:
+    shape = stacks[0].shape
+    if len(shape) != 2 or shape[0] < 1:
+        raise ValueError(f"{kernel}: expected [R >= 1, S] stacks, got {shape}")
+    if any(s.shape != shape for s in stacks):
+        raise ValueError(f"{kernel}: stack shapes differ")
+    return int(shape[0]), int(shape[1])
+
+
+def merge_elems(at: torch.Tensor, an: torch.Tensor, dt: torch.Tensor):
+    """K1: [R, S] element fold -> (at[S], an[S], dt[S], win[S] int64):
+    lexicographic (add_t, add_node) max over R, the first row achieving
+    it, and an independent max of del_t."""
+    if _on_cpu(at, an, dt):
+        return D.dense_merge_elems(at, an, dt)
+    _check("merge_elems", at, an, dt)
+    rows, cols = _stack_shape("merge_elems", at, an, dt)
+    out = [torch.empty(cols, dtype=torch.int64, device=at.device)
+           for _ in range(4)]
+    if cols:
+        lib = _lib("merge_fold")
+        rc = lib.constdb_merge_elems(
+            at.data_ptr(), an.data_ptr(), dt.data_ptr(), rows, cols,
+            *(o.data_ptr() for o in out), _stream(at))
+        _check_rc(lib, "merge_elems", rc)
+        LAUNCHES["merge_elems"] += 1
+    return tuple(out)
+
+
+def merge_lww(t: torch.Tensor, n: torch.Tensor):
+    """K1 as the plain (t, node) LWW fold of registers: the del side is an
+    all-zero stack made on the device.  -> (t[S], n[S], win[S])."""
+    at, an, _dt, win = merge_elems(t, n, torch.zeros_like(t))
+    return at, an, win
+
+
+def merge_counters(vals: torch.Tensor, ts: torch.Tensor):
+    """K2: [R, S] counter-slot fold -> (val[S], t[S]): lexicographic
+    (t, value) max over R (LWW with max-value tie)."""
+    if _on_cpu(vals, ts):
+        return D.dense_merge_counters(vals, ts)
+    _check("merge_counters", vals, ts)
+    rows, cols = _stack_shape("merge_counters", vals, ts)
+    o_val = torch.empty(cols, dtype=torch.int64, device=vals.device)
+    o_t = torch.empty(cols, dtype=torch.int64, device=vals.device)
+    if cols:
+        lib = _lib("merge_fold")
+        rc = lib.constdb_merge_counters(
+            vals.data_ptr(), ts.data_ptr(), rows, cols, o_val.data_ptr(),
+            o_t.data_ptr(), _stream(vals))
+        _check_rc(lib, "merge_counters", rc)
+        LAUNCHES["merge_counters"] += 1
+    return o_val, o_t
+
+
+def segment_sum(ids: torch.Tensor, vals: torch.Tensor,
+                n_seg: int) -> torch.Tensor:
+    """K4: per-segment int64 sums of `vals` over unsorted int32 `ids` in
+    [0, n_seg), exact mod 2^64 -> [n_seg] int64."""
+    if _on_cpu(ids, vals):
+        return D.segment_sum(ids, vals, n_seg)
+    _check("segment_sum", ids, dtype=torch.int32)
+    _check("segment_sum", vals)
+    if ids.dim() != 1 or ids.shape != vals.shape:
+        raise ValueError("segment_sum: ids and vals must be equal-length 1-D")
+    out = torch.zeros(n_seg, dtype=torch.int64, device=vals.device)
+    n = int(ids.shape[0])
+    if n and n_seg:
+        lib = _lib("segment_sum")
+        rc = lib.constdb_segment_sum(ids.data_ptr(), vals.data_ptr(), n,
+                                     n_seg, out.data_ptr(), _stream(vals))
+        _check_rc(lib, "segment_sum", rc)
+        LAUNCHES["segment_sum"] += 1
+    return out

@@ -1,0 +1,1290 @@
+"""Columnar keyspace — the data plane of a node.
+
+Capability parity with the reference's `DB` + per-key `Object` heap
+(reference src/db.rs, src/object.rs, src/type_counter.rs,
+src/crdt/lwwhash.rs), redesigned accelerator-first: all numeric CRDT state
+(envelope times, counter slots, element add/del times) lives in contiguous
+numpy columns so bulk merges stage to the device without per-row Python
+work.  Indexes from key/member bytes to rows are native C++ hash tables
+(utils/tables.py) with batch entry points —
+the merge engine resolves a million rows in a handful of FFI calls.
+
+Tables:
+  keys  — one row per key: enc, ct/mt/dt envelope, expire, register value
+          (bytes in a side list) with its (write-time, writer-node), counter
+          sum cache.  `key_index` (StrTable) maps key bytes -> row, and row
+          ids ARE interner ids (both assign in insertion order).
+  cnt   — one row per (key, node) counter slot: val, uuid, base, base_t.
+          `cnt_rank_rows` maps node rank -> direct (kid -> row) int32
+          array, so slot resolution is a vectorized gather, not a hash
+          probe per row.
+  el    — one row per set-member / dict-field: add_t, add_node, del_t;
+          member/value bytes in side lists.  `member_index` (StrTable)
+          interns member bytes; `el_index` (I64Dict) maps
+          (kid << MEMBER_BITS | member_id) -> row.  GC marks rows dead
+          (kid = -1); `_compact_elements` rebuilds the columns once dead
+          rows dominate (no free-list — row ids stay stable between
+          compactions, which the batched engine relies on).
+
+Single-op serving methods implement the op-level rules of
+crdt/semantics.py; bulk merge goes through engine/ (MergeEngine boundary).
+"""
+
+from __future__ import annotations
+
+import heapq
+import threading
+import zlib
+from typing import Iterator, Optional
+
+import numpy as np
+
+from ..crdt import semantics as S
+from ..crdt import tensor as T
+from ..errors import InvalidType
+from ..utils.tables import I64Dict, StrTable
+from .columns import Columns, TensorCols
+
+_I64 = np.int64
+
+# the CRDT planes a resident merge engine mirrors — the ONE definition the
+# command table, the version setter, and the engine all derive from
+FAMILIES = ("env", "reg", "cnt", "el", "tns")
+
+
+def _blen(x) -> int:
+    return len(x) if x is not None else 0
+
+
+class BlobList(list):
+    """Side list of optional byte-strings with incremental byte
+    accounting into its keyspace's `blob_bytes` gauge.
+
+    Every blob plane (key bytes, register values, element members and
+    values) is one of these, so the overload governor's `used_bytes`
+    stays exact through EVERY mutation path — the op-path setters, the
+    engines' winner-assignment loops, and the flush path's slice writes
+    — without instrumenting each call site (there are a dozen across
+    engine/hostbatch.py and engine/cuda.py alone, all hot).  Two escape
+    hatches exist, both fenced: rebinding the attribute to a plain list
+    (only `_compact_elements` does it, adjusting the gauge itself), and
+    the list mutators no blob plane uses — those raise loudly below
+    instead of silently drifting the gauge, so a future call site must
+    add its accounting here first.
+
+    Pickles as a plain list (shard workers ship copies of these in
+    `keyspace_state_bytes`; the receiving side owns no gauge)."""
+
+    __slots__ = ("ks",)
+
+    def __init__(self, ks, items=()):
+        super().__init__(items)
+        ks.blob_bytes += sum(map(_blen, self))
+        self.ks = ks
+
+    def append(self, x) -> None:
+        self.ks.blob_bytes += _blen(x)
+        list.append(self, x)
+
+    def extend(self, it) -> None:
+        n0 = len(self)
+        list.extend(self, it)
+        if len(self) > n0:
+            self.ks.blob_bytes += sum(map(_blen,
+                                          list.__getitem__(
+                                              self, slice(n0, None))))
+
+    def __setitem__(self, i, v) -> None:
+        if type(i) is slice:
+            old = sum(map(_blen, list.__getitem__(self, i)))
+            v = list(v)
+            list.__setitem__(self, i, v)
+            self.ks.blob_bytes += sum(map(_blen, v)) - old
+        else:
+            self.ks.blob_bytes += _blen(v) - _blen(list.__getitem__(self, i))
+            list.__setitem__(self, i, v)
+
+    def _unaccounted(self, *_a, **_k):
+        raise NotImplementedError(
+            "unaccounted BlobList mutation — this mutator would drift "
+            "KeySpace.blob_bytes silently; add byte accounting to "
+            "BlobList before using it on a blob plane")
+
+    # no blob plane uses these today (the accounting property test
+    # would not catch a silent bypass, so fail loudly instead)
+    pop = remove = insert = clear = _unaccounted
+    __delitem__ = __iadd__ = __imul__ = _unaccounted
+
+    def __reduce__(self):
+        return (list, (list(self),))
+
+
+class _KeyCols(Columns):
+    def __init__(self) -> None:
+        super().__init__(
+            {"enc": np.int8, "ct": _I64, "mt": _I64, "dt": _I64, "expire": _I64,
+             "rv_t": _I64, "rv_node": _I64, "cnt_sum": _I64},
+            cap=8096,  # parity: reference db.rs DB_INITIAL_SIZE
+        )
+
+
+class _CntCols(Columns):
+    # val  = the writer node's LIFETIME cumulative total (LWW register @ uuid)
+    # base = the total observed by the latest counter delete (LWW @ base_t)
+    # visible contribution of a slot = val - base
+    def __init__(self) -> None:
+        super().__init__({"kid": _I64, "node": _I64, "val": _I64, "uuid": _I64,
+                          "base": _I64, "base_t": _I64}, cap=4096)
+
+
+class _ElCols(Columns):
+    def __init__(self) -> None:
+        super().__init__({"kid": _I64, "add_t": _I64, "add_node": _I64, "del_t": _I64}, cap=8192)
+
+
+class KeySpace:
+    NODE_RANK_BITS = 20  # up to ~1M distinct node ids per cluster lifetime
+    MEMBER_BITS = 32     # up to ~4G distinct member byte-strings
+    NEUTRAL_T = S.NEUTRAL_T
+    # dense per-rank counter windows convert to a hash once they would
+    # span > DENSE_FLOOR kids at < 1/MIN_FILL occupancy (sparse wide-range
+    # ranks must not cost O(kid range) host RAM)
+    CNT_WINDOW_MIN_FILL = 8
+    CNT_WINDOW_DENSE_FLOOR = 1 << 16
+
+    def __init__(self) -> None:
+        self.keys = _KeyCols()
+        # exact byte total of every blob side list (key bytes, register
+        # values, element members/values) — maintained incrementally by
+        # BlobList through every mutation path; `used_bytes` folds it
+        # into the overload governor's memory accounting
+        self.blob_bytes = 0
+        self.key_bytes: list[bytes] = BlobList(self)
+        self.key_index = StrTable(8096)
+        self.reg_val: list[Optional[bytes]] = BlobList(self)
+        # per-CRDT-plane write versions, bumped by op-path writes: a
+        # device-resident merge engine drops ONLY the mirrors of planes
+        # that actually changed (engine/cuda.py; a global version made
+        # mixed traffic re-upload every table per frame)
+        self.fam_ver: dict[str, int] = dict.fromkeys(FAMILIES, 0)
+
+        self.cnt = _CntCols()
+        # per-rank direct (kid -> cnt row) index windows: counter slot
+        # resolution is a vectorized gather (engine) or one array read
+        # (op path) instead of a hash probe per row.  Each rank holds
+        # (base, int32 array) covering only the kid RANGE it has touched
+        # (-1 = absent), so a node owning a handful of high-kid slots
+        # costs KBs, not O(keys.n).  A rank whose touched kids are SPARSE
+        # over a wide range (occupancy below 1/CNT_WINDOW_MIN_FILL of a
+        # window past CNT_WINDOW_DENSE_FLOOR entries) falls back to an
+        # I64Dict in `cnt_rank_hash` instead — O(slots) RAM, not
+        # O(kid range).
+        self.cnt_rank_rows: dict[int, tuple[int, np.ndarray]] = {}
+        self.cnt_rank_hash: dict[int, object] = {}
+        self.cnt_rank_live: dict[int, int] = {}
+        # per-kid row lists are derived lazily from the columns (bulk merges
+        # append millions of rows; only point reads need the lists)
+        self.cnt_rows_by_kid: dict[int, list[int]] = {}
+        self._cnt_synced = 0
+        self.node_rank: dict[int, int] = {}
+        self.node_ids: list[int] = []
+
+        self.el = _ElCols()
+        self.el_member: list[Optional[bytes]] = BlobList(self)
+        self.el_val: list[Optional[bytes]] = BlobList(self)
+        self.member_index = StrTable(8192)
+        self.el_index = I64Dict(8192)
+        self.el_rows_by_kid: dict[int, list[int]] = {}
+        self._el_synced = 0
+        self.el_dead = 0
+        # bumped by _compact_elements (the ONLY operation allowed to
+        # re-identify element rows).  Row ids are stable between bumps —
+        # the batched engine stages row indices on a worker thread and
+        # scatters into them at dispatch, so it pins this counter across
+        # the stage→dispatch window (engine/cuda.py) and fails loudly if a
+        # compaction slipped in between.
+        self.el_compact_epoch = 0
+
+        # incremental crc32 caches for the anti-entropy digest
+        # (store/digest.py): key/member bytes are hashed ONCE, in append
+        # order, by key_crcs()/member_crcs() — the per-item Python cost
+        # of a digest exchange is amortized over the row's lifetime
+        # instead of re-paid per exchange.  _compact_elements drops the
+        # member cache (row ids change); keys are never re-identified.
+        self._key_crc: Optional[np.ndarray] = None
+        self._key_crc_n = 0
+        self._member_crc: Optional[np.ndarray] = None
+        self._member_crc_n = 0
+        # serializes the crc cache grow-and-fill: warm_digest_caches
+        # runs in an executor thread while the event loop may sync the
+        # same caches inline (digest refinement on another link) —
+        # unserialized, interleaved (cache, n) field writes could pair
+        # a small-capacity array with a larger synced count
+        self._crc_lock = threading.Lock()
+
+        # tensor plane (crdt/tensor.py): contributor slots — one row per
+        # (key, writer node) — with the LWW stamp/count columns in `tns`
+        # and the payload arrays row-aligned in `tns_payload`.  Config is
+        # creation-fixed per key (`tns_meta`); `tns_index` maps
+        # (kid << NODE_RANK_BITS) | rank -> row.  Rows are never
+        # compacted (slots persist across key tombstones — the envelope
+        # ct/dt rule decides visibility, add-wins like registers).
+        self.tns = TensorCols()
+        self.tns_payload: list[Optional[np.ndarray]] = []
+        self.tns_index = I64Dict(256)
+        self.tns_meta: dict[int, T.TensorMeta] = {}
+        self.tns_rows_by_kid: dict[int, list[int]] = {}
+        self._tns_synced = 0
+        # running payload-byte gauge (INFO: exact without an O(rows) walk)
+        self.tns_bytes = 0
+        # slot-merge WINS by strategy name (INFO: merges by strategy)
+        self.tns_merges_by_strat: dict[str, int] = {}
+
+        # key-level tombstone record for snapshot DELETES + GC
+        # (parity: reference db.rs `deletes` map)
+        self.key_deletes: dict[bytes, int] = {}
+        # optional hook fired when a key-level tombstone is recorded (the
+        # Node routes it to EVENT_DELETED so the GC cron can sweep early)
+        self.on_key_delete = None
+        # min-heap of (uuid, seq, key, member-or-None): merge and replicated
+        # ops enqueue out-of-order timestamps, so a plain FIFO (the
+        # reference's LinkedList, db.rs) would stall collection behind one
+        # future entry; seq breaks comparison ties before the None member
+        self.garbage: list[tuple[int, int, bytes, Optional[bytes]]] = []
+        self._garbage_seq = 0
+
+    # ------------------------------------------------------------- versions
+
+    def touch(self, *families: str) -> None:
+        """Mark CRDT planes as host-modified (op path / GC)."""
+        fv = self.fam_ver
+        for f in families:
+            fv[f] += 1
+
+    @property
+    def version(self) -> int:
+        """Aggregate write version (monotonic; back-compat surface)."""
+        return sum(self.fam_ver.values())
+
+    @version.setter
+    def version(self, _value) -> None:
+        """`ks.version += 1` keeps meaning "everything may have changed"."""
+        self.touch(*FAMILIES)
+
+    # ------------------------------------------------------------------ keys
+
+    def lookup(self, key: bytes) -> int:
+        return self.key_index.lookup(key)
+
+    def n_keys(self) -> int:
+        return self.keys.n
+
+    def create_key(self, key: bytes, enc: int, ct: int, dt: int = 0) -> int:
+        kid = self.keys.append(enc=enc, ct=ct, mt=0, dt=dt, expire=0,
+                               rv_t=0, rv_node=0, cnt_sum=0)
+        self.key_bytes.append(key)
+        self.reg_val.append(None)
+        iid = self.key_index.get_or_insert(key)
+        assert iid == kid, f"key index desync: {iid} != {kid}"
+        return kid
+
+    def get_or_create(self, key: bytes, enc: int, uuid: int) -> tuple[int, bool]:
+        """Existing row (type-checked) or a fresh one created at `uuid`."""
+        kid = self.key_index.lookup(key)
+        if kid < 0:
+            return self.create_key(key, enc, uuid), True
+        if int(self.keys.enc[kid]) != enc:
+            raise InvalidType()
+        return kid, False
+
+    def query(self, key: bytes, uuid: int) -> int:
+        """kid or -1; lazily applies a due expiry as a key-level delete
+        (parity: reference db.rs:53-66)."""
+        kid = self.key_index.lookup(key)
+        if kid < 0:
+            return -1
+        exp = int(self.keys.expire[kid])
+        if exp and exp <= uuid and int(self.keys.dt[kid]) < exp:
+            # a due expiry is a plain key-level delete at `exp`: dt advances
+            # to exp and the usual `ct >= dt` rule decides visibility, so a
+            # data write after the deadline resurrects the key (add-wins).
+            # (The reference instead calls updated_at here, resurrecting the
+            # key it just expired — db.rs:53-66, its own assertion at
+            # db.rs:154 is commented out.  Fixed.)
+            self.keys.dt[kid] = exp
+            if exp > int(self.keys.mt[kid]):
+                self.keys.mt[kid] = exp
+            self.record_key_delete(key, exp)
+            # this is a READ-path host write: without the bump a resident
+            # env mirror would flush its older dt back and resurrect the
+            # expired key
+            self.touch("env")
+        return kid
+
+    def alive(self, kid: int) -> bool:
+        return S.key_alive(int(self.keys.ct[kid]), int(self.keys.dt[kid]))
+
+    def key_delete_times(self, keys: list) -> np.ndarray:
+        """Vectorized key bytes -> current key-level delete time (0 for
+        absent keys).  The coalescing replication applier
+        (replica/coalesce.py) evaluates the element-plane key-delete rule
+        against the LIVE dt at the moment its batch lands — one batched
+        native lookup instead of a hash probe per pending frame."""
+        kids = self.key_index.lookup_batch(keys)
+        out = np.zeros(len(keys), dtype=_I64)
+        m = kids >= 0
+        if m.any():
+            out[m] = self.keys.dt[kids[m]]
+        return out
+
+    @staticmethod
+    def _crc_sync(cache: Optional[np.ndarray], synced: int, n: int,
+                  items) -> tuple[np.ndarray, int]:
+        """Grow-and-fill helper for the incremental crc caches: crc32 the
+        items appended since the last sync into a uint64 cache array."""
+        if cache is None or len(cache) < n:
+            cap = 1 << max(n - 1, 1023).bit_length()
+            new = np.zeros(cap, dtype=np.uint64)
+            if cache is not None and synced:
+                new[:synced] = cache[:synced]
+            cache = new
+        if synced < n:
+            crc = zlib.crc32
+            cache[synced:n] = np.fromiter(
+                (crc(b) if b is not None else 0
+                 for b in items[synced:n]),
+                dtype=np.uint64, count=n - synced)
+        return cache, n
+
+    def key_crcs(self) -> np.ndarray:
+        """crc32 of every key's bytes, kid-aligned (the digest partition
+        — store/digest.py).  Maintained incrementally in append order:
+        each key is hashed once over its lifetime, not once per digest
+        exchange."""
+        n = self.keys.n
+        with self._crc_lock:
+            self._key_crc, self._key_crc_n = self._crc_sync(
+                self._key_crc, self._key_crc_n, n, self.key_bytes)
+            return self._key_crc[:n]
+
+    def member_crcs(self) -> np.ndarray:
+        """crc32 of every element row's member bytes, row-aligned (0 for
+        GC-dead rows, which digests exclude anyway).  Incremental like
+        key_crcs; element compaction re-identifies rows and drops the
+        cache (_compact_elements)."""
+        n = self.el.n
+        with self._crc_lock:
+            epoch = self.el_compact_epoch
+            cache, cn = self._crc_sync(
+                self._member_crc, self._member_crc_n, n, self.el_member)
+            if self.el_compact_epoch != epoch:
+                # an element compaction interleaved this pass — only
+                # possible off-loop (warm_digest_caches in an executor;
+                # inline callers run on the loop, where compaction can't
+                # preempt).  Rows were re-identified under us: drop the
+                # pass instead of storing a misaligned cache (the warm
+                # caller discards the return; the next inline sync
+                # rebuilds from the compacted columns).
+                self._member_crc = None
+                self._member_crc_n = 0
+                return np.zeros(0, dtype=np.uint64)
+            self._member_crc, self._member_crc_n = cache, cn
+            return self._member_crc[:n]
+
+    def warm_digest_caches(self) -> None:
+        """Fill the incremental digest crc caches — safe to run in an
+        executor thread while the event loop serves (replica/link.py
+        _local_digest warms off-loop so the FIRST digest on a long-lived
+        store doesn't stall the loop on the per-item crc32 backlog over
+        every key and member).  Inline syncs serialize on _crc_lock; an
+        element compaction interleaving the member pass is ordered by
+        the same lock (see _compact_elements / member_crcs)."""
+        self.key_crcs()
+        self.member_crcs()
+
+    def enc_of(self, kid: int) -> int:
+        return int(self.keys.enc[kid])
+
+    def updated_at(self, kid: int, uuid: int) -> None:
+        ct, mt, dt = S.updated_at(int(self.keys.ct[kid]), int(self.keys.mt[kid]),
+                                  int(self.keys.dt[kid]), uuid)
+        self.keys.ct[kid], self.keys.mt[kid], self.keys.dt[kid] = ct, mt, dt
+
+    def envelope(self, kid: int) -> tuple[int, int, int]:
+        return int(self.keys.ct[kid]), int(self.keys.mt[kid]), int(self.keys.dt[kid])
+
+    def set_delete_time(self, kid: int, uuid: int) -> None:
+        if uuid > int(self.keys.dt[kid]):
+            self.keys.dt[kid] = uuid
+        if uuid > int(self.keys.mt[kid]):
+            self.keys.mt[kid] = uuid
+
+    def expire_at(self, key: bytes, t: int) -> None:
+        """Latest expiry wins (max-merge; see semantics.py header)."""
+        kid = self.key_index.lookup(key)
+        if kid >= 0 and t > int(self.keys.expire[kid]):
+            self.keys.expire[kid] = t
+
+    def _enqueue_garbage(self, t: int, key: bytes, member: Optional[bytes]) -> None:
+        self._garbage_seq += 1
+        heapq.heappush(self.garbage, (t, self._garbage_seq, key, member))
+
+    def enqueue_garbage_bulk(self, ts: list, keys: list, members: list) -> None:
+        """Bulk tombstone enqueue.  A snapshot-merge flush queues millions
+        of entries, where the per-push path was a top flush cost — but a
+        SMALL batch into a huge standing heap must not pay a full O(heap)
+        re-heapify either, so pushes win whenever n·log(heap) is cheaper."""
+        n = len(ts)
+        if not n:
+            return
+        seq0 = self._garbage_seq
+        self._garbage_seq = seq0 + n
+        seqs = range(seq0 + 1, seq0 + 1 + n)
+        heap = self.garbage
+        total = len(heap) + n
+        if n * max(total.bit_length(), 1) < total:
+            for entry in zip(ts, seqs, keys, members):
+                heapq.heappush(heap, entry)
+        else:
+            heap.extend(zip(ts, seqs, keys, members))
+            heapq.heapify(heap)
+
+    def record_key_delete(self, key: bytes, t: int) -> None:
+        if self.key_deletes.get(key, -1) < t:
+            self.key_deletes[key] = t
+            self._enqueue_garbage(t, key, None)
+            if self.on_key_delete is not None:
+                self.on_key_delete()
+
+    # -------------------------------------------------------------- counters
+
+    def rank_of(self, node: int) -> int:
+        """Dense rank for a node id (monotone in registration order)."""
+        r = self.node_rank.get(node)
+        if r is None:
+            r = len(self.node_ids)
+            if r >= (1 << self.NODE_RANK_BITS):
+                raise OverflowError("too many distinct node ids")
+            self.node_rank[node] = r
+            self.node_ids.append(node)
+        return r
+
+    def cnt_rank_rows_arr(self, rank: int, lo: int,
+                          hi: int) -> tuple[int, np.ndarray]:
+        """The rank's (base, kid -> cnt row) window, grown (fill -1) to
+        cover kids [lo, hi).  Rows are int32 (a keyspace cannot exceed
+        2^31 counter slots before exhausting memory ~100x over)."""
+        ent = self.cnt_rank_rows.get(rank)
+        if ent is not None:
+            base, arr = ent
+            if lo >= base and hi <= base + len(arr):
+                return ent
+        # the grown window's geometry comes from the SAME helper the
+        # dense-vs-hash decision uses (cnt_rows_assign/_cnt_row) — the
+        # predicted cap and the allocated cap cannot drift apart
+        nb, cap = self._window_cap(lo, hi, ent)
+        new = np.full(cap, -1, dtype=np.int32)
+        if ent is not None:
+            base, arr = ent
+            new[base - nb: base - nb + len(arr)] = arr
+        self.cnt_rank_rows[rank] = (nb, new)
+        return nb, new
+
+    @staticmethod
+    def _window_cap(lo: int, hi: int, ent) -> tuple[int, int]:
+        """(base, cap) the dense window would need to cover [lo, hi)."""
+        nb = lo & ~1023
+        if ent is not None:
+            base, arr = ent
+            nb = min(nb, base)
+            top = max(base + len(arr), hi)
+        else:
+            top = hi
+        return nb, 1 << max(top - nb - 1, 1023).bit_length()
+
+    def _rank_to_hash(self, rank: int):
+        """Convert a rank's dense window (if any) to hash mode."""
+        h = I64Dict(max(self.cnt_rank_live.get(rank, 0), 16))
+        ent = self.cnt_rank_rows.pop(rank, None)
+        if ent is not None:
+            base, arr = ent
+            live = np.nonzero(arr >= 0)[0]
+            if len(live):
+                h.put_batch(live + base, arr[live].astype(_I64))
+        self.cnt_rank_hash[rank] = h
+        return h
+
+    def cnt_rows_lookup(self, rank: int, kids: np.ndarray) -> np.ndarray:
+        """Vectorized kid -> cnt row for one rank (-1 = absent).  Never
+        grows the dense window — pure lookups mask against it instead."""
+        h = self.cnt_rank_hash.get(rank)
+        if h is not None:
+            return h.lookup_batch(kids)
+        ent = self.cnt_rank_rows.get(rank)
+        if ent is None:
+            return np.full(len(kids), -1, dtype=_I64)
+        base, arr = ent
+        lo = int(kids.min()) if len(kids) else 0
+        hi = int(kids.max()) + 1 if len(kids) else 0
+        if lo >= base and hi <= base + len(arr):
+            return arr[kids - base].astype(_I64)
+        out = np.full(len(kids), -1, dtype=_I64)
+        m = (kids >= base) & (kids < base + len(arr))
+        out[m] = arr[kids[m] - base]
+        return out
+
+    def cnt_rows_assign(self, rank: int, kids: np.ndarray,
+                        rows: np.ndarray) -> None:
+        """Record kid -> row for freshly created slots (kids unique).
+        Picks the representation: the dense window grows to cover the new
+        kids unless that leaves it < 1/CNT_WINDOW_MIN_FILL occupied past
+        the dense floor — then the rank converts to hash mode."""
+        live = self.cnt_rank_live.get(rank, 0) + len(kids)
+        self.cnt_rank_live[rank] = live
+        h = self.cnt_rank_hash.get(rank)
+        if h is None:
+            lo, hi = int(kids.min()), int(kids.max()) + 1
+            ent = self.cnt_rank_rows.get(rank)
+            _, cap = self._window_cap(lo, hi, ent)
+            if cap <= self.CNT_WINDOW_DENSE_FLOOR or \
+                    live * self.CNT_WINDOW_MIN_FILL >= cap:
+                base, arr = self.cnt_rank_rows_arr(rank, lo, hi)
+                arr[kids - base] = rows.astype(np.int32)
+                return
+            h = self._rank_to_hash(rank)
+        h.put_batch(kids, rows)
+
+    def _cnt_row(self, kid: int, node: int) -> int:
+        """Existing or fresh (both pairs unwritten) slot row."""
+        rank = self.rank_of(node)
+        h = self.cnt_rank_hash.get(rank)
+        if h is not None:
+            row = h.get(kid, -1)
+            if row < 0:
+                row = self.cnt.append(kid=kid, node=node, val=0,
+                                      uuid=self.NEUTRAL_T,
+                                      base=0, base_t=self.NEUTRAL_T)
+                h.put(kid, row)
+                self.cnt_rank_live[rank] = \
+                    self.cnt_rank_live.get(rank, 0) + 1
+            return row
+        ent = self.cnt_rank_rows.get(rank)
+        _, cap = self._window_cap(kid, kid + 1, ent)
+        if cap > self.CNT_WINDOW_DENSE_FLOOR and \
+                (self.cnt_rank_live.get(rank, 0) + 1) * \
+                self.CNT_WINDOW_MIN_FILL < cap:
+            self._rank_to_hash(rank)
+            return self._cnt_row(kid, node)
+        base, arr = self.cnt_rank_rows_arr(rank, kid, kid + 1)
+        row = int(arr[kid - base])
+        if row < 0:
+            row = self.cnt.append(kid=kid, node=node, val=0, uuid=self.NEUTRAL_T,
+                                  base=0, base_t=self.NEUTRAL_T)
+            arr[kid - base] = row
+            self.cnt_rank_live[rank] = self.cnt_rank_live.get(rank, 0) + 1
+        return row
+
+    def counter_slot_total(self, kid: int, node: int) -> int:
+        """Read-only probe of one (key, node) slot's lifetime total (0 for
+        an unwritten slot).  The serve coalescer plans INCR rewrites from
+        this without materializing the slot row (`_cnt_row` would) — the
+        planned CNTSET batch row creates it when the run lands."""
+        rank = self.rank_of(node)
+        h = self.cnt_rank_hash.get(rank)
+        if h is not None:
+            row = h.get(kid, -1)
+        else:
+            row = -1
+            ent = self.cnt_rank_rows.get(rank)
+            if ent is not None:
+                base, arr = ent
+                if base <= kid < base + len(arr):
+                    row = int(arr[kid - base])
+        return int(self.cnt.val[row]) if row >= 0 else 0
+
+    def _sync_cnt_lists(self) -> None:
+        n = self.cnt.n
+        if self._cnt_synced < n:
+            by_kid = self.cnt_rows_by_kid
+            for off, kid in enumerate(self.cnt.kid[self._cnt_synced:n].tolist()):
+                by_kid.setdefault(kid, []).append(self._cnt_synced + off)
+            self._cnt_synced = n
+
+    def counter_change(self, kid: int, node: int, delta: int, uuid: int) -> tuple[int, int]:
+        """Local INCR/DECR on the caller's own slot: the cumulative lifetime
+        total advances by `delta` at `uuid`.  -> (new visible sum, new total).
+
+        Counter model (diverges deliberately from the reference's delta
+        scheme, type_counter.rs + cmd.rs:233-254, which requires exactly-once
+        in-order delivery and still diverges around deletes): a slot is a
+        single-writer LWW register holding the writer's lifetime total, plus
+        a delete-observed `base` LWW register; the visible contribution is
+        total - base.  Every component is an LWW assignment, so replication
+        is idempotent, reorder-safe, and bit-identical to state merges.
+        """
+        row = self._cnt_row(kid, node)
+        if uuid > int(self.cnt.uuid[row]):
+            self.cnt.val[row] += delta
+            self.cnt.uuid[row] = uuid
+            self.keys.cnt_sum[kid] += delta
+        return int(self.keys.cnt_sum[kid]), int(self.cnt.val[row])
+
+    def counter_set_total(self, kid: int, node: int, total: int, uuid: int) -> None:
+        """Replicated total assignment (CNTSET): LWW on uuid."""
+        row = self._cnt_row(kid, node)
+        if uuid > int(self.cnt.uuid[row]):
+            self.keys.cnt_sum[kid] += total - int(self.cnt.val[row])
+            self.cnt.val[row] = total
+            self.cnt.uuid[row] = uuid
+
+    def counter_set_base(self, kid: int, node: int, base: int, base_t: int) -> None:
+        """Delete-observed base assignment (DELCNT): LWW on delete time,
+        max-base on exact ties (concurrent deletes on different nodes can
+        mint the same uuid — must mirror merge_counter_slot's tie rule)."""
+        row = self._cnt_row(kid, node)
+        b0, bt0 = int(self.cnt.base[row]), int(self.cnt.base_t[row])
+        if base_t > bt0 or (base_t == bt0 and base > b0):
+            self.keys.cnt_sum[kid] -= base - b0
+            self.cnt.base[row] = base
+            self.cnt.base_t[row] = base_t
+
+    def counter_sum(self, kid: int) -> int:
+        return int(self.keys.cnt_sum[kid])
+
+    def counter_slots(self, kid: int) -> list[tuple[int, int, int, int, int]]:
+        """[(node, total, uuid, base, base_t)] for DESC / DEL / snapshot."""
+        self._sync_cnt_lists()
+        out = []
+        for row in self.cnt_rows_by_kid.get(kid, ()):
+            out.append((int(self.cnt.node[row]), int(self.cnt.val[row]),
+                        int(self.cnt.uuid[row]), int(self.cnt.base[row]),
+                        int(self.cnt.base_t[row])))
+        return out
+
+    def recompute_counter_sums(self) -> None:
+        """Vectorized re-derivation of every key's sum cache (used by the
+        batched engines after bulk slot merges)."""
+        n = self.cnt.n
+        nk = self.keys.n
+        if not n:
+            self.keys.cnt_sum[:nk] = 0
+            return
+        contrib = self.cnt.val[:n] - self.cnt.base[:n]
+        kid = self.cnt.kid[:n]
+        amax = int(np.abs(contrib).max())
+        # bincount accumulates in float64 — exact only while every partial
+        # sum stays under 2^53, guaranteed by n * max|contrib| < 2^53;
+        # larger magnitudes fall back to the (slower) exact int64 add.at
+        if amax and n * amax < (1 << 53):
+            sums = np.bincount(kid, weights=contrib, minlength=nk)
+            self.keys.cnt_sum[:nk] = sums[:nk].astype(_I64)
+        elif amax == 0:
+            self.keys.cnt_sum[:nk] = 0
+        else:
+            sums = np.zeros(nk, dtype=_I64)
+            np.add.at(sums, kid, contrib)
+            self.keys.cnt_sum[:nk] = sums
+
+    def counter_merge_slot(self, kid: int, node: int, total: int, uuid: int,
+                           base: int, base_t: int) -> None:
+        """State-merge of one foreign slot (CPU merge engine): both LWW
+        pairs merge independently (max-total on exact uuid ties)."""
+        row = self._cnt_row(kid, node)
+        v0, t0 = int(self.cnt.val[row]), int(self.cnt.uuid[row])
+        v1, t1 = S.merge_counter_slot(v0, t0, total, uuid)
+        if (v1, t1) != (v0, t0):
+            self.keys.cnt_sum[kid] += v1 - v0
+            self.cnt.val[row], self.cnt.uuid[row] = v1, t1
+        b0, bt0 = int(self.cnt.base[row]), int(self.cnt.base_t[row])
+        b1, bt1 = S.merge_counter_slot(b0, bt0, base, base_t)
+        if (b1, bt1) != (b0, bt0):
+            self.keys.cnt_sum[kid] -= b1 - b0
+            self.cnt.base[row], self.cnt.base_t[row] = b1, bt1
+
+    # ------------------------------------------------------------- registers
+
+    def register_set(self, kid: int, val: bytes, uuid: int, node: int) -> bool:
+        """Op-level LWW write (client SET / replicated SET)."""
+        if S.lww_wins(int(self.keys.rv_t[kid]), int(self.keys.rv_node[kid]), uuid, node):
+            return False
+        self.reg_val[kid] = val
+        self.keys.rv_t[kid], self.keys.rv_node[kid] = uuid, node
+        self.updated_at(kid, uuid)
+        return True
+
+    def register_get(self, kid: int) -> Optional[bytes]:
+        return self.reg_val[kid]
+
+    def register_state(self, kid: int) -> tuple[Optional[bytes], int, int]:
+        return self.reg_val[kid], int(self.keys.rv_t[kid]), int(self.keys.rv_node[kid])
+
+    def register_merge(self, kid: int, val: bytes, t: int, node: int) -> None:
+        if S.lww_wins(t, node, int(self.keys.rv_t[kid]), int(self.keys.rv_node[kid])):
+            self.reg_val[kid] = val
+            self.keys.rv_t[kid], self.keys.rv_node[kid] = t, node
+
+    # -------------------------------------------------------------- elements
+
+    def el_combo(self, kid: int, member: bytes) -> int:
+        """Stable combo id for an element slot; interns the member bytes."""
+        mid = self.member_index.get_or_insert(member)
+        return (kid << self.MEMBER_BITS) | mid
+
+    def el_row(self, kid: int, member: bytes) -> int:
+        mid = self.member_index.lookup(member)
+        if mid < 0:
+            return -1
+        return self.el_index.get((kid << self.MEMBER_BITS) | mid, -1)
+
+    def elem_add(self, kid: int, member: bytes, val: Optional[bytes],
+                 uuid: int, node: int) -> bool:
+        """SADD member / HSET field: pure pointwise add-side LWW write, so
+        the op path and the state-merge path (elem_merge) compute the same
+        function.  (The reference instead DROPS adds older than the del time
+        or the stored add time — lwwhash.rs:87-107 — which leaves replicas
+        that saw different op interleavings with different hidden state.)
+        Returns True iff the member became visible by this op."""
+        combo = self.el_combo(kid, member)
+        row = self.el_index.get(combo, -1)
+        if row < 0:
+            self._el_new_row(combo, kid, member, val, uuid, node)
+            return True  # del_t == 0 → visible
+        at, an = int(self.el.add_t[row]), int(self.el.add_node[row])
+        dt = int(self.el.del_t[row])
+        was_alive = S.elem_alive(at, dt)
+        if not S.lww_wins(at, an, uuid, node):
+            self.el.add_t[row], self.el.add_node[row] = uuid, node
+            self.el_val[row] = val
+            at = uuid
+        return S.elem_alive(at, dt) and not was_alive
+
+    def elem_rem(self, kid: int, member: bytes, uuid: int) -> bool:
+        """SREM member / HDEL field: pure pointwise del-side max (see
+        elem_add; reference lwwhash.rs:109-128 drops dels older than the
+        stored add time).  Returns True iff the member became invisible."""
+        combo = self.el_combo(kid, member)
+        row = self.el_index.get(combo, -1)
+        if row < 0:
+            # record the tombstone, but an absent member was not "removed"
+            row = self._el_new_row(combo, kid, member, None, 0, 0)
+            self.el.del_t[row] = uuid
+            self._enqueue_garbage(uuid, self.key_bytes[kid], member)
+            return False
+        at, dt = int(self.el.add_t[row]), int(self.el.del_t[row])
+        was_alive = S.elem_alive(at, dt)
+        if uuid > dt:
+            self.el.del_t[row] = dt = uuid
+            if at < dt:
+                self._enqueue_garbage(dt, self.key_bytes[kid], member)
+        return was_alive and not S.elem_alive(at, dt)
+
+    def elem_get(self, kid: int, member: bytes) -> Optional[bytes]:
+        """Live dict-field value or None."""
+        row = self.el_row(kid, member)
+        if row < 0:
+            return None
+        if S.elem_alive(int(self.el.add_t[row]), int(self.el.del_t[row])):
+            return self.el_val[row]
+        return None
+
+    def _sync_el_lists(self) -> None:
+        n = self.el.n
+        if self._el_synced < n:
+            by_kid = self.el_rows_by_kid
+            for off, kid in enumerate(self.el.kid[self._el_synced:n].tolist()):
+                by_kid.setdefault(kid, []).append(self._el_synced + off)
+            self._el_synced = n
+
+    def _live_rows(self, kid: int) -> Iterator[int]:
+        self._sync_el_lists()
+        for row in self.el_rows_by_kid.get(kid, ()):
+            if int(self.el.kid[row]) == kid:
+                yield row
+
+    def elem_live(self, kid: int) -> Iterator[tuple[bytes, Optional[bytes], int]]:
+        """(member, value, add_t) for visible elements."""
+        for row in self._live_rows(kid):
+            if S.elem_alive(int(self.el.add_t[row]), int(self.el.del_t[row])):
+                yield self.el_member[row], self.el_val[row], int(self.el.add_t[row])
+
+    def elem_all(self, kid: int) -> Iterator[tuple[bytes, int, int, int, Optional[bytes]]]:
+        """(member, add_t, add_node, del_t, value) incl. tombstones."""
+        for row in self._live_rows(kid):
+            yield (self.el_member[row], int(self.el.add_t[row]),
+                   int(self.el.add_node[row]), int(self.el.del_t[row]),
+                   self.el_val[row])
+
+    # ------------------------------------------------- batched read gathers
+    # The serve coalescer's read planner (server/serve.py) resolves a
+    # whole pipelined read run against the columns in a handful of
+    # vectorized passes instead of per-command (and per-member) hash
+    # probes + scalar reads.  Each gather is the exact batch twin of the
+    # single-op read above it — same row order, same liveness rule — so
+    # planned replies are byte-identical to the per-command path's.
+
+    def register_get_batch(self, kids) -> list:
+        """Register blobs for a batch of kids (`register_get` twin)."""
+        reg = self.reg_val
+        return [reg[kid] for kid in kids]
+
+    def counter_sum_batch(self, kid_arr: np.ndarray) -> list[int]:
+        """Visible counter totals for a batch of kids in one gather off
+        the incrementally-maintained sum column (`counter_sum` twin —
+        the slot/bincount machinery keeps `cnt_sum` exact through every
+        merge path)."""
+        if len(kid_arr) < 8:  # below the fancy-index floor
+            col = self.keys.cnt_sum
+            return [int(col[kid]) for kid in kid_arr]
+        return self.keys.cnt_sum[kid_arr].tolist()
+
+    def elem_live_rows_batch(self, kids) -> list[np.ndarray]:
+        """Live element rows per kid, in row (append) order — the batch
+        twin of iterating `elem_live`: one concatenated mask over
+        `add_t >= del_t` plus the compaction-staleness kid check
+        replaces per-row scalar reads."""
+        self._sync_el_lists()
+        by_kid = self.el_rows_by_kid
+        per = [by_kid.get(kid, ()) for kid in kids]
+        counts = [len(p) for p in per]
+        total = sum(counts)
+        if not total:
+            return [np.empty(0, dtype=_I64) for _ in kids]
+        if total < 64:
+            # below the vectorization floor the array setup costs more
+            # than the scalar walk it replaces (a fragmented read run
+            # gathers a couple of small sets per batch)
+            el_kid, add_t, del_t = self.el.kid, self.el.add_t, self.el.del_t
+            return [np.fromiter(
+                (r for r in p
+                 if el_kid[r] == kid and add_t[r] >= del_t[r]),
+                dtype=_I64) for kid, p in zip(kids, per)]
+        rows = np.empty(total, dtype=_I64)
+        pos = 0
+        for p, c in zip(per, counts):
+            if c:
+                rows[pos:pos + c] = p
+                pos += c
+        el = self.el
+        owner = np.repeat(np.asarray(kids, dtype=_I64),
+                          np.asarray(counts, dtype=_I64))
+        live = (el.kid[rows] == owner) & (el.add_t[rows] >= el.del_t[rows])
+        out = []
+        pos = 0
+        for c in counts:
+            sl = rows[pos:pos + c]
+            out.append(sl[live[pos:pos + c]])
+            pos += c
+        return out
+
+    def elem_probe_batch(self, kid_arr: np.ndarray,
+                         members: list) -> tuple[np.ndarray, np.ndarray]:
+        """(row, alive) per (kid, member) pair — the batch twin of
+        `el_row` + `elem_alive` (HGET / SISMEMBER probes): one member
+        interner batch + one combo-index batch replaces two hash probes
+        per command.  Rows are -1 for unknown members/combos."""
+        n = len(members)
+        if n < 8:
+            # scalar twin below the vectorization floor (same liveness
+            # rule, no array setup)
+            rows = np.full(n, -1, dtype=_I64)
+            alive = np.zeros(n, dtype=bool)
+            el = self.el
+            for x in range(n):
+                row = self.el_row(int(kid_arr[x]), members[x])
+                if row >= 0:
+                    rows[x] = row
+                    alive[x] = el.add_t[row] >= el.del_t[row]
+            return rows, alive
+        mids = self.member_index.lookup_batch(members)
+        combos = (kid_arr << self.MEMBER_BITS) | mids
+        rows = self.el_index.lookup_batch(combos)
+        rows[mids < 0] = -1
+        alive = np.zeros(len(rows), dtype=bool)
+        hit = rows >= 0
+        if hit.any():
+            hr = rows[hit]
+            alive[hit] = self.el.add_t[hr] >= self.el.del_t[hr]
+        return rows, alive
+
+    def elem_merge(self, kid: int, member: bytes, add_t: int, add_node: int,
+                   del_t: int, val: Optional[bytes]) -> None:
+        """State-merge of one foreign element (CPU merge engine)."""
+        combo = self.el_combo(kid, member)
+        row = self.el_index.get(combo, -1)
+        if row < 0:
+            row = self._el_new_row(combo, kid, member, val, add_t, add_node)
+            self.el.del_t[row] = del_t
+            if add_t < del_t:
+                self._enqueue_garbage(del_t, self.key_bytes[kid], member)
+            return
+
+        a0, n0, d0 = int(self.el.add_t[row]), int(self.el.add_node[row]), int(self.el.del_t[row])
+        at, an, dt, local_wins = S.merge_elem(a0, n0, d0, add_t, add_node, del_t)
+        self.el.add_t[row], self.el.add_node[row], self.el.del_t[row] = at, an, dt
+        if not local_wins:
+            self.el_val[row] = val
+        # re-queue whenever the merged row is dead and its del_t advanced (a
+        # pending entry at the old, smaller del_t would be discarded by gc)
+        if at < dt and dt > d0:
+            self._enqueue_garbage(dt, self.key_bytes[kid], member)
+
+    def _el_new_row(self, combo: int, kid: int, member: bytes,
+                    val: Optional[bytes], add_t: int, add_node: int) -> int:
+        row = self.el.append(kid=kid, add_t=add_t, add_node=add_node, del_t=0)
+        self.el_member.append(member)
+        self.el_val.append(val)
+        self.el_index.put(combo, row)
+        return row
+
+    # -------------------------------------------------------------- tensors
+    # The two-layer tensor register (crdt/tensor.py): per-(key, node)
+    # contributor slots merge as LWW on uuid (the payload and count ride
+    # the winner — exactly the counter-slot rule with an object payload),
+    # and reads reduce the live contributor set with the key's registered
+    # strategy in canonical (node, uuid) order.  `tensor_merge_row` is
+    # the ONE per-row reference implementation: the op path, the CPU
+    # engine, and the host micro strategy all call it; the device micro
+    # path (engine/cuda.py) folds + scatters the very same decisions in
+    # batch and is differential-tested byte-identical.
+
+    def tensor_get_or_create(self, key: bytes, cfg: bytes,
+                             uuid: int) -> int:
+        """Existing tensor key (enc- and config-checked) or a fresh one
+        whose config is fixed from `cfg` (packed TensorMeta)."""
+        kid, _created = self.get_or_create(key, S.ENC_TENSOR, uuid)
+        meta = self.tns_meta.get(kid)
+        if meta is None:
+            self.tns_meta[kid] = T.unpack_config(cfg)
+        elif T.pack_config(meta) != bytes(cfg):
+            raise T.TensorConfigError(
+                "tensor config mismatch: shape/dtype/strategy are fixed "
+                "at key creation")
+        return kid
+
+    def tensor_meta_of(self, kid: int) -> Optional[T.TensorMeta]:
+        return self.tns_meta.get(kid)
+
+    def tensor_slot_row(self, kid: int, node: int) -> int:
+        """Existing or fresh (neutral) contributor slot row."""
+        combo = (kid << self.NODE_RANK_BITS) | self.rank_of(node)
+        row = self.tns_index.get(combo, -1)
+        if row < 0:
+            row = self.tns.append(kid=kid, node=node, uuid=self.NEUTRAL_T,
+                                  cnt=0)
+            self.tns_payload.append(None)
+            self.tns_index.put(combo, row)
+        return row
+
+    def tensor_assign_payload(self, row: int, arr: np.ndarray) -> None:
+        """Replace a slot's payload array, keeping the byte gauge exact
+        (the device flush path writes downloaded rows through here)."""
+        old = self.tns_payload[row]
+        if old is not None:
+            self.tns_bytes -= old.nbytes
+        self.tns_payload[row] = arr
+        self.tns_bytes += arr.nbytes
+
+    def tensor_slot_set(self, kid: int, node: int, uuid: int, cnt: int,
+                        payload: np.ndarray) -> bool:
+        """LWW-assign one contributor slot (op path == merge path; the
+        strict > keeps equal-uuid re-delivery idempotent — one node's
+        uuids are unique per write, so an equal stamp IS the same
+        write).  `payload` must already be the meta-normalized array."""
+        row = self.tensor_slot_row(kid, node)
+        if uuid <= int(self.tns.uuid[row]):
+            return False
+        self.tns.uuid[row] = uuid
+        self.tns.cnt[row] = cnt
+        self.tensor_assign_payload(row, payload)
+        return True
+
+    def tensor_count_merge(self, meta: T.TensorMeta, n: int = 1) -> None:
+        """Bump the per-strategy merge gauge (INFO).  Counted once per
+        VALIDATED delivered contribution — not per LWW win — so the
+        gauge reads the same whichever engine or routing processed the
+        rows (the device path folds intra-batch duplicates before its
+        win test, a per-win count would depend on routing)."""
+        name = meta.strat_name
+        self.tns_merges_by_strat[name] = \
+            self.tns_merges_by_strat.get(name, 0) + n
+
+    def tensor_merge_row(self, kid: int, node: int, uuid: int, cnt: int,
+                         cfg: bytes, payload) -> bool:
+        """State-merge one foreign contributor row (the per-row
+        reference both engines' batch paths must match).  Config
+        mismatches and malformed payloads are skipped with a log —
+        snapshot-merge semantics, like type conflicts."""
+        meta = self.tns_meta.get(kid)
+        try:
+            T.check_count(cnt)
+            if meta is None:
+                meta = T.unpack_config(cfg)
+                self.tns_meta[kid] = meta
+            elif T.pack_config(meta) != bytes(cfg):
+                raise T.TensorConfigError("tensor config mismatch")
+            arr = T.payload_array(meta, payload)
+        except T.TensorConfigError as e:
+            import logging
+            logging.getLogger(__name__).error(
+                "skipping tensor row for kid %d: %s", kid, e)
+            return False
+        self.tensor_count_merge(meta)
+        return self.tensor_slot_set(kid, node, uuid, cnt, arr)
+
+    def _sync_tns_lists(self) -> None:
+        n = self.tns.n
+        if self._tns_synced < n:
+            by_kid = self.tns_rows_by_kid
+            for off, kid in enumerate(
+                    self.tns.kid[self._tns_synced:n].tolist()):
+                by_kid.setdefault(kid, []).append(self._tns_synced + off)
+            self._tns_synced = n
+
+    def tensor_contrib_rows(self, kid: int) -> list[int]:
+        """Slot rows of one key holding a real write, in canonical
+        (node, uuid) ascending order — THE reduction order every
+        strategy uses (crdt/tensor.py canonical_order)."""
+        self._sync_tns_lists()
+        # membership comes from the STAMP column alone (host-
+        # authoritative): under a resident engine a merged slot's host
+        # payload stays stale until flush, but the slot is already a
+        # contributor — the device read serves its payload from the pool
+        rows = [r for r in self.tns_rows_by_kid.get(kid, ())
+                if int(self.tns.uuid[r]) != self.NEUTRAL_T]
+        rows.sort(key=lambda r: (int(self.tns.node[r]),
+                                 int(self.tns.uuid[r])))
+        return rows
+
+    def tensor_contribs(self, kid: int) -> list[tuple]:
+        """[(node, uuid, cnt, payload)] in canonical order (STAT /
+        snapshot / canonical)."""
+        return [(int(self.tns.node[r]), int(self.tns.uuid[r]),
+                 int(self.tns.cnt[r]), self.tns_payload[r])
+                for r in self.tensor_contrib_rows(kid)]
+
+    def tensor_read(self, kid: int) -> Optional[np.ndarray]:
+        """Host reference read: the key's strategy reduced over the
+        contributor set in canonical order (flat [elems] array; callers
+        reshape via the meta).  None when no contribution landed yet."""
+        meta = self.tns_meta.get(kid)
+        rows = self.tensor_contrib_rows(kid)
+        if meta is None or not rows:
+            return None
+        mat = np.stack([self.tns_payload[r] for r in rows])
+        return T.reduce_rows(meta.strat, mat, self.tns.cnt[rows],
+                             self.tns.uuid[rows], self.tns.node[rows])
+
+    # ------------------------------------------------------------------- GC
+
+    def gc(self, horizon: int) -> int:
+        """Physically drop tombstones every replica has acknowledged
+        (parity: reference db.rs:82-119, fixed to pop oldest-first and to
+        actually collect equal-time entries)."""
+        freed = 0
+        el_freed = 0
+        while self.garbage:
+            t, _seq, key, member = self.garbage[0]
+            if t > horizon:
+                break
+            heapq.heappop(self.garbage)
+            if member is None:
+                if self.key_deletes.get(key) == t:
+                    del self.key_deletes[key]
+                    freed += 1
+                continue
+            kid = self.key_index.lookup(key)
+            if kid < 0:
+                continue
+            row = self.el_row(kid, member)
+            if row < 0:
+                continue
+            at, dt = int(self.el.add_t[row]), int(self.el.del_t[row])
+            if at < dt and dt <= horizon:
+                mid = self.member_index.lookup(member)
+                self.el_index.delete((kid << self.MEMBER_BITS) | mid)
+                self.el.kid[row] = -1
+                self.el_member[row] = None
+                self.el_val[row] = None
+                self.el_dead += 1
+                freed += 1
+                el_freed += 1
+        if el_freed:
+            # a resident engine's device mirrors gather/scatter by row id;
+            # any element-row removal (and especially the compaction below,
+            # which REORDERS rows) must invalidate them or later flushes
+            # write stale columns over the collected table.  key_deletes-only
+            # rounds touch no mirrored column and skip the bump.
+            self.touch("el")
+        if self.el_dead > 10_000 and self.el_dead * 2 > self.el.n:
+            self._compact_elements()
+        return freed
+
+    def _compact_elements(self) -> None:
+        """Rebuild element storage without dead rows (replaces free-list
+        reuse: row ids must stay stable BETWEEN compactions so the batched
+        engine's staged row indices never alias)."""
+        self.touch("el")  # row ids change: resident device mirrors are stale
+        # row ids are about to change: the digest's member-crc cache is
+        # row-aligned and must rebuild from the compacted columns.  The
+        # lock orders this against an off-loop warm_digest_caches pass:
+        # either the warm stored its cache first (we drop it here) or it
+        # observes the epoch bump and drops its own pass — never a
+        # misaligned cache surviving.  Worst case this waits out one
+        # in-flight warm (gc-triggered compaction, background path).
+        with self._crc_lock:
+            self.el_compact_epoch += 1
+            self._member_crc = None
+            self._member_crc_n = 0
+        n = self.el.n
+        live = np.nonzero(self.el.kid[:n] >= 0)[0]
+        # row-id stability accounting: rows only die through gc() (which
+        # counts el_dead) and only compaction re-identifies them, so the
+        # dead-row census must match exactly.  A mismatch means some path
+        # reused or dropped a row id between compactions — the batched
+        # engine's staged row indices would silently alias.  Real raise,
+        # not assert: `python -O` must not strip this guard.
+        if n - len(live) != self.el_dead:
+            raise RuntimeError(
+                f"element row-id stability broken: {n - len(live)} dead "
+                f"rows found but {self.el_dead} accounted")
+        new_el = _ElCols()
+        new_el.append_block(len(live), kid=self.el.kid[live],
+                            add_t=self.el.add_t[live],
+                            add_node=self.el.add_node[live],
+                            del_t=self.el.del_t[live])
+        # rebinding the blob planes bypasses BlobList accounting: retire
+        # the old lists' bytes, and the fresh BlobLists re-add their own
+        # (net zero — gc() already nulled every dead row's blobs)
+        self.blob_bytes -= sum(map(_blen, self.el_member)) + \
+            sum(map(_blen, self.el_val))
+        members = BlobList(self, (self.el_member[r] for r in live.tolist()))
+        self.el_val = BlobList(self, (self.el_val[r] for r in live.tolist()))
+        self.el_member = members
+        self.el = new_el
+        self.el_dead = 0
+        # rebuild combo index + per-kid lists with the new row ids
+        self.el_index = I64Dict(max(len(live), 16))
+        by_kid: dict[int, list[int]] = {}
+        kids = new_el.kid[: new_el.n].tolist()
+        if members:
+            mids, _ = self.member_index.get_or_insert_batch(members)
+            combos = (np.asarray(kids, dtype=_I64) << self.MEMBER_BITS) | mids
+            self.el_index.put_batch(combos, np.arange(len(live), dtype=_I64))
+        for row, kid in enumerate(kids):
+            by_kid.setdefault(kid, []).append(row)
+        self.el_rows_by_kid = by_kid
+        self._el_synced = new_el.n
+
+    # ------------------------------------------------------------ inspection
+
+    def canonical(self, keys=None) -> dict:
+        """Full logical state (incl. tombstones) for convergence checks.
+        `keys`: restrict to these key bytes (absent keys are omitted — a
+        comparison against an oracle that HAS them then fails loudly);
+        used by bench.py to oracle-verify a subsample of a 10M-key store
+        without walking all of it."""
+        out = {}
+        if keys is not None:
+            items = ((self.lookup(k), k) for k in keys)
+            items = ((kid, k) for kid, k in items if kid >= 0)
+        else:
+            items = enumerate(self.key_bytes)
+        for kid, key in items:
+            enc = int(self.keys.enc[kid])
+            ct, mt, dt = self.envelope(kid)
+            if enc == S.ENC_COUNTER:
+                content = frozenset(self.counter_slots(kid))
+            elif enc == S.ENC_BYTES:
+                content = self.register_state(kid)
+            elif enc == S.ENC_TENSOR:
+                meta = self.tns_meta.get(kid)
+                cfg = T.pack_config(meta) if meta is not None else b""
+                content = (cfg, frozenset(
+                    (node, uuid, cnt, p.tobytes())
+                    for node, uuid, cnt, p in self.tensor_contribs(kid)))
+            else:
+                # a del_t at or below add_t is semantically inert (visibility
+                # and every future max-merge are unchanged by zeroing it), and
+                # GC timing legitimately leaves different inert values on
+                # different replicas — normalize so canonical state converges
+                content = frozenset(
+                    (m, at, an, dlt if dlt > at else 0, v)
+                    for m, at, an, dlt, v in self.elem_all(kid)
+                )
+            out[key] = (enc, ct, mt, dt, int(self.keys.expire[kid]), content)
+        return out
+
+    def describe(self, kid: int) -> dict:
+        """DESC command payload: raw CRDT state incl. tombstones."""
+        enc = int(self.keys.enc[kid])
+        ct, mt, dt = self.envelope(kid)
+        d = {"enc": S.ENC_NAMES.get(enc, str(enc)), "ct": ct, "mt": mt, "dt": dt}
+        if enc == S.ENC_COUNTER:
+            d["slots"] = sorted(self.counter_slots(kid))
+            d["sum"] = self.counter_sum(kid)
+        elif enc == S.ENC_TENSOR:
+            meta = self.tns_meta.get(kid)
+            if meta is not None:
+                d["strategy"] = meta.strat_name
+                d["dtype"] = T.DTYPE_NAMES[meta.dtype_code]
+                d["shape"] = meta.shape
+            d["contributors"] = [(n_, u, c)
+                                 for n_, u, c, _p in
+                                 self.tensor_contribs(kid)]
+        elif enc == S.ENC_BYTES:
+            val, t, node = self.register_state(kid)
+            d["value"], d["vtime"], d["vnode"] = val, t, node
+        else:
+            d["elems"] = sorted(self.elem_all(kid))
+        return d
+
+    def used_bytes(self) -> int:
+        """The store's governed memory footprint (server/overload.py):
+        LIVE numeric rows + the incrementally-tracked blob and tensor
+        payload bytes.  Deliberately excludes index-table overhead and
+        pow2 column slack so shards=N sums to exactly the shards=1
+        figure (the accounting-invariance property test pins this) —
+        the watermarks are set against this gauge, so what matters is
+        that it tracks growth exactly, not that it equals RSS."""
+        return (self.keys.live_bytes() + self.cnt.live_bytes()
+                + self.el.live_bytes() + self.tns.live_bytes()
+                + self.blob_bytes + self.tns_bytes)
+
+    def release_warm_caches(self) -> None:
+        """Drop rebuildable warm-path caches (the hard-watermark
+        degradation step, server/overload.py): the incremental digest
+        crc caches — the next digest exchange re-fills them lazily, at
+        the documented off-loop-warm cost.  Taken under the crc lock so
+        an in-flight off-loop warm can never store a freed cache back."""
+        with self._crc_lock:
+            self._key_crc = None
+            self._key_crc_n = 0
+            self._member_crc = None
+            self._member_crc_n = 0
+
+    def memory_report(self) -> dict:
+        """Store memory accounting for INFO: exact numeric-plane bytes
+        (column capacities) plus row/byte-string counts (the blob planes
+        are Python bytes objects; counting them exactly would walk O(rows)
+        objects, so INFO reports counts and lets RSS cover the rest —
+        reference src/lib.rs:63-78 leans on jemalloc the same way)."""
+        return {
+            "used_bytes": self.used_bytes(),
+            "blob_bytes": self.blob_bytes,
+            "numeric_bytes": (self.keys.nbytes() + self.cnt.nbytes()
+                              + self.el.nbytes() + self.tns.nbytes()
+                              + sum(a.nbytes for _, a
+                                    in self.cnt_rank_rows.values())
+                              # hash-mode ranks: ~16B/entry estimate
+                              + sum(16 * len(h)
+                                    for h in self.cnt_rank_hash.values())),
+            "keys": self.keys.n,
+            "counter_slots": self.cnt.n,
+            "element_rows": self.el.n,
+            "element_rows_dead": self.el_dead,
+            "tensor_slots": self.tns.n,
+            "tensor_payload_bytes": self.tns_bytes,
+            "interned_members": len(self.member_index),
+            "key_tombstones": len(self.key_deletes),
+            "garbage_queue": len(self.garbage),
+        }

@@ -1,0 +1,385 @@
+"""Differential tests: the port's TorchMergeEngine (on the CPU) against the
+reference engines.
+
+Each workload (those of tests/test_engine_equivalence.py, plus a small
+chunked catch-up in the plain and the aligned-counter shapes) runs through
+the reference CpuMergeEngine and TpuMergeEngine(dense_fold="xla",
+steady=False) on reference batches, and through the port engine on the
+same bytes carried across with constdb_tpu_torch.convert.  canonical()
+and the counter sums must be equal, exactly, for every port
+configuration: resident in {False, True} x dense_fold in {auto, eager,
+off} (plus the scatter chooser, the iota index path and the "cuda" mode,
+whose kernel wrappers take their plain versions on CPU tensors).
+"""
+
+import numpy as np
+import pytest
+
+import bench
+from constdb_tpu.crdt import ENC_COUNTER, ENC_DICT
+from constdb_tpu.engine import CpuMergeEngine, batch_from_keyspace
+from constdb_tpu.engine.tpu import TpuMergeEngine
+from constdb_tpu.persist.snapshot import batch_chunks
+from constdb_tpu.store import KeySpace
+from constdb_tpu_torch import convert, workload
+from constdb_tpu_torch.conf import build_engine
+from constdb_tpu_torch.engine.cuda import TorchMergeEngine
+from constdb_tpu_torch.store.keyspace import KeySpace as PortKeySpace
+
+from test_merge_properties import gen_store
+
+# (resident, dense_fold, chooser): chooser "scatter" forces the
+# touched-slot scatter path, "iota" derives every contiguous idx on device
+CONFIGS = [(False, "auto", "bulk"), (False, "eager", "bulk"),
+           (False, "off", "bulk"), (False, "eager", "scatter"),
+           (True, "auto", "bulk"), (True, "auto", "iota"),
+           (True, "eager", "bulk"), (True, "off", "bulk"),
+           (True, "cuda", "iota")]
+CONFIG_IDS = [f"{'res' if r else 'nonres'}-{f}-{c}" for r, f, c in CONFIGS]
+
+
+def port_batch(b):
+    return convert.batch_from_dict(
+        {f: getattr(b, f) for f in convert.BATCH_FIELDS})
+
+
+def keyspace_dict(ks) -> dict:
+    d = {g: {c: ks_cols.col(c).copy() for c in cols}
+         for g, cols in convert.KEYSPACE_COLUMNS.items()
+         for ks_cols in [getattr(ks, g)]}
+    for name in convert.KEYSPACE_LISTS:
+        d[name] = list(getattr(ks, name))
+    from constdb_tpu.crdt import tensor as T
+    d["tns_meta"] = {k: T.pack_config(m) for k, m in ks.tns_meta.items()}
+    d["key_deletes"] = dict(ks.key_deletes)
+    d["garbage"] = list(ks.garbage)
+    return d
+
+
+def sums(ks):
+    return {k: ks.counter_sum(kid) for kid, k in enumerate(ks.key_bytes)
+            if ks.enc_of(kid) == ENC_COUNTER}
+
+
+# ---------------------------------------------------------------- workloads
+# each -> (initial reference KeySpace or None, [merge_many groups], gc)
+
+def wl_empty(seed):
+    return None, [[batch_from_keyspace(gen_store(seed, node=1))]], None
+
+
+def wl_overlap(seed):
+    x = batch_from_keyspace(gen_store(seed, node=1))
+    y = batch_from_keyspace(gen_store(seed + 1000, node=2))
+    return None, [[x], [y]], None
+
+
+def wl_three_way(seed):
+    bs = [batch_from_keyspace(gen_store(seed + i * 77, node=i + 1))
+          for i in range(3)]
+    return None, [[b] for b in bs + [bs[0]]], None
+
+
+def wl_gc(seed):
+    x = batch_from_keyspace(gen_store(seed, node=1))
+    y = batch_from_keyspace(gen_store(seed + 500, node=2))
+    return None, [[x], [y]], 40 << 22
+
+
+def wl_onto_state(seed):
+    """Merge onto a store carried across from the reference."""
+    return gen_store(seed, node=1), \
+        [[batch_from_keyspace(gen_store(seed + 300, node=2))]], None
+
+
+def _raw_batch(keys, cnt_ki, cnt_node, cnt_val, cnt_uuid):
+    from constdb_tpu.engine.base import ColumnarBatch
+    n = len(keys)
+    b = ColumnarBatch()
+    b.keys = keys
+    b.key_enc = np.zeros(n, np.int8)
+    b.key_ct = np.full(n, 1 << 22, np.int64)
+    b.key_mt = np.zeros(n, np.int64)
+    b.key_dt = np.zeros(n, np.int64)
+    b.key_expire = np.zeros(n, np.int64)
+    b.reg_val = [None] * n
+    b.reg_t = np.zeros(n, np.int64)
+    b.reg_node = np.zeros(n, np.int64)
+    m = len(cnt_ki)
+    b.cnt_ki = np.array(cnt_ki, np.int64)
+    b.cnt_node = np.array(cnt_node, np.int64)
+    b.cnt_val = np.array(cnt_val, np.int64)
+    b.cnt_uuid = np.array(cnt_uuid, np.int64)
+    b.cnt_base = np.zeros(m, np.int64)
+    b.cnt_base_t = np.full(m, KeySpace.NEUTRAL_T, np.int64)
+    return b
+
+
+def wl_dup_slot_rows(_seed):
+    return None, [[_raw_batch([b"k"], [0, 0], [7, 7], [50, 3],
+                              [9 << 22, 2 << 22])]], None
+
+
+def wl_dup_keys(_seed):
+    return None, [[_raw_batch([b"k", b"k"], [0, 1], [1, 2], [5, 10],
+                              [2 << 22, 3 << 22])]], None
+
+
+def wl_type_conflict(_seed):
+    from constdb_tpu.crdt import ENC_SET
+    a = KeySpace()
+    ka, _ = a.get_or_create(b"k", ENC_COUNTER, 5 << 22)
+    a.counter_change(ka, 1, 1, 5 << 22)
+    b = KeySpace()
+    kb, _ = b.get_or_create(b"k", ENC_SET, 6 << 22)
+    b.elem_add(kb, b"m", None, 6 << 22, 2)
+    return a, [[batch_from_keyspace(b)]], None
+
+
+def wl_empty_batch(_seed):
+    return None, [[batch_from_keyspace(KeySpace())]], None
+
+
+def wl_winning_none(_seed):
+    def mk(add_t, val):
+        b = batch_from_keyspace(KeySpace())
+        b.rows_unique_per_slot = True
+        b.keys = [b"d1"]
+        b.key_enc = np.array([ENC_DICT], dtype=np.int8)
+        b.key_ct = np.array([1 << 22], dtype=np.int64)
+        b.key_mt = np.array([add_t], dtype=np.int64)
+        b.key_dt = np.zeros(1, dtype=np.int64)
+        b.key_expire = np.zeros(1, dtype=np.int64)
+        b.reg_val = [None]
+        b.reg_t = np.zeros(1, dtype=np.int64)
+        b.reg_node = np.zeros(1, dtype=np.int64)
+        b.el_ki = np.zeros(1, dtype=np.int64)
+        b.el_member = [b"m"]
+        b.el_val = [val]
+        b.el_add_t = np.array([add_t], dtype=np.int64)
+        b.el_add_node = np.array([1], dtype=np.int64)
+        b.el_del_t = np.zeros(1, dtype=np.int64)
+        return b
+    # the lexicographic winner carries None and must CLEAR the value
+    return None, [[mk(100 << 22, b"y"), mk(200 << 22, None)]], None
+
+
+def wl_aligned(_seed):
+    return None, [bench.make_workload(600, 4, seed=11)], None
+
+
+def wl_aligned_onto_state(_seed):
+    bs = bench.make_workload(600, 4, seed=11)
+    return None, [bs[:1], bs[1:]], None
+
+
+def wl_aligned_counters(_seed):
+    batches = bench.make_workload(400, 1, seed=3)
+    b2 = bench.make_workload(400, 1, seed=4)[0]
+    b2.cnt_node = batches[0].cnt_node
+    return None, [[batches[0], b2]], None
+
+
+def _catchup(aligned):
+    """~2000 keys x 3 replicas in 300-key chunks: groups of 3 (aligned),
+    12 (host combine across ranges) and a trailing partial group."""
+    bs = workload.make_workload(2000, 3, seed=5, aligned_counters=aligned)
+    chunks = list(_interleave(bs, 300))
+    return None, [chunks[0:3], chunks[3:15], chunks[15:18],
+                  chunks[18:]], None
+
+
+def _interleave(batches, chunk):
+    """Reference chunks of port batches, replica chunks interleaved."""
+    per = [list(batch_chunks(_to_ref(b), chunk)) for b in batches]
+    for i in range(max(len(p) for p in per)):
+        for p in per:
+            if i < len(p):
+                yield p[i]
+
+
+def _to_ref(b):
+    from constdb_tpu.engine.base import ColumnarBatch
+    out = ColumnarBatch()
+    for f in convert.BATCH_FIELDS:
+        setattr(out, f, getattr(b, f))
+    return out
+
+
+def wl_catchup_plain(_seed):
+    return _catchup(False)
+
+
+def wl_catchup_aligned_counters(_seed):
+    return _catchup(True)
+
+
+WORKLOADS = {
+    "empty-0": (wl_empty, 0), "empty-1": (wl_empty, 1),
+    "empty-7": (wl_empty, 7),
+    "overlap-0": (wl_overlap, 0), "overlap-4": (wl_overlap, 4),
+    "three-way-3": (wl_three_way, 3), "gc-2": (wl_gc, 2),
+    "gc-5": (wl_gc, 5), "onto-state-6": (wl_onto_state, 6),
+    "dup-slot-rows": (wl_dup_slot_rows, 0), "dup-keys": (wl_dup_keys, 0),
+    "type-conflict": (wl_type_conflict, 0),
+    "empty-batch": (wl_empty_batch, 0),
+    "winning-none": (wl_winning_none, 0), "aligned": (wl_aligned, 0),
+    "aligned-onto-state": (wl_aligned_onto_state, 0),
+    "aligned-counters": (wl_aligned_counters, 0),
+    "catchup-plain": (wl_catchup_plain, 0),
+    "catchup-aligned-counters": (wl_catchup_aligned_counters, 0),
+}
+
+_REF: dict = {}
+
+
+def _run_ref(name):
+    """Reference results, cached per workload: (cpu canonical, cpu sums,
+    jax canonical, jax sums)."""
+    if name not in _REF:
+        fn, seed = WORKLOADS[name]
+        out = []
+        for eng in (CpuMergeEngine(),
+                    TpuMergeEngine(dense_fold="xla", steady=False)):
+            init, steps, gc = fn(seed)
+            ks = init if init is not None else KeySpace()
+            for group in steps:
+                eng.merge_many(ks, group)
+            if eng.needs_flush:
+                eng.flush(ks)
+            if gc is not None:
+                ks.gc(gc)
+            out += [ks.canonical(), sums(ks)]
+        _REF[name] = tuple(out)
+    return _REF[name]
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=CONFIG_IDS)
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_port_engine_matches_reference(name, cfg):
+    resident, fold, chooser = cfg
+    cpu_can, cpu_sums, jax_can, jax_sums = _run_ref(name)
+    assert cpu_can == jax_can and cpu_sums == jax_sums
+
+    fn, seed = WORKLOADS[name]
+    init, steps, gc = fn(seed)
+    eng = TorchMergeEngine(resident=resident, dense_fold=fold,
+                           device="cpu", pipeline=resident)
+    if chooser == "scatter":
+        eng.BULK_FRACTION = 0
+    elif chooser == "iota":
+        eng.IDX_IOTA_MIN = 1
+    ks = PortKeySpace() if init is None else \
+        convert.keyspace_from_dict(keyspace_dict(init))
+    for group in steps:
+        eng.merge_many(ks, [port_batch(b) for b in group])
+    eng.flush(ks)
+    if gc is not None:
+        ks.gc(gc)
+    eng.close()
+    assert ks.canonical() == cpu_can
+    assert sums(ks) == cpu_sums
+
+
+def test_fold_counts_follow_mode():
+    """The aligned fold runs on device under eager/cuda, on host under
+    auto, never under off."""
+    _, steps, _ = wl_aligned(0)
+    folds = {}
+    for fold in ("off", "eager", "cuda", "auto"):
+        eng = TorchMergeEngine(dense_fold=fold, device="cpu")
+        eng.merge_many(PortKeySpace(), [port_batch(b) for b in steps[0]])
+        folds[fold] = eng.folds
+    ref = TpuMergeEngine(dense_fold="xla", steady=False)
+    ref.merge_many(KeySpace(), steps[0])
+    assert folds["off"] == 0
+    assert folds["eager"] == folds["cuda"] == ref.folds > 0
+    assert folds["auto"] > 0
+
+
+def test_convert_carries_keyspace_state():
+    for seed in (1, 8):
+        ref = gen_store(seed, node=3)
+        port = convert.keyspace_from_dict(keyspace_dict(ref))
+        assert port.canonical() == ref.canonical()
+        assert sums(port) == sums(ref)
+        pb = batch_from_keyspace(ref)
+        from constdb_tpu_torch.engine.base import batch_from_keyspace as pbk
+        got = pbk(port)
+        for f in convert.BATCH_FIELDS:
+            a, b = getattr(got, f), getattr(pb, f)
+            if isinstance(b, np.ndarray):
+                np.testing.assert_array_equal(a, b)
+            elif f == "tns_payload":
+                assert [x.tobytes() for x in a] == [x.tobytes() for x in b]
+            else:
+                assert a == b, f
+
+
+def test_workload_matches_bench():
+    """The port's workload generator draws the reference bench's bytes."""
+    mine = workload.make_workload(500, 2, seed=9)
+    ref = bench.make_workload(500, 2, seed=9)
+    for m, r in zip(mine, ref):
+        for f in convert.BATCH_FIELDS:
+            a, b = getattr(m, f), getattr(r, f)
+            if isinstance(b, np.ndarray):
+                np.testing.assert_array_equal(a, b)
+            else:
+                assert a == b, f
+    sub, keys = workload.subsample_workload(mine, 500, target=50)
+    rsub, rkeys = bench.subsample_workload(ref, 500, target=50)
+    assert keys == rkeys and len(sub) == len(rsub)
+
+
+def test_port_catchup_verifies_against_oracle():
+    """The chip_smoke catch-up shape at a small size: groups of 4R under
+    auto, groups of R in the aligned-counter shape under the cuda mode."""
+    for aligned, fold, group in ((False, "auto", 12), (True, "cuda", 3)):
+        bs = workload.make_workload(3000, 3, seed=2, aligned_counters=aligned)
+        chunks = workload.chunk_batches(bs, 512)
+        eng = TorchMergeEngine(resident=True, dense_fold=fold, device="cpu")
+        ks = PortKeySpace()
+        for i in range(0, len(chunks), group):
+            eng.merge_many(ks, chunks[i:i + group])
+        eng.flush(ks)
+        eng.close()
+        checked, bad = workload.verify_store(ks, bs, 3000, target=600)
+        assert checked == 600 and bad == 0
+        assert eng.folds > 0
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        TorchMergeEngine(steady=True, device="cpu")
+    with pytest.raises(ValueError):
+        TorchMergeEngine(dense_fold="pallas", device="cpu")
+    assert build_engine("cpu").name == "cpu"
+    assert build_engine("cuda", device="cpu").resident
+
+
+def test_pool_bounds_flush_between_rounds():
+    """The int32 win-pool ceiling pre-flushes before a round that could
+    cross it, a zero pinned-bytes bound flushes after every round, and a
+    single round past the ceiling raises before any pool state changes;
+    the merged state stays exact throughout."""
+    _, steps, _ = wl_catchup_plain(0)
+    want = _run_ref("catchup-plain")
+    for ceiling, flush_bytes in ((3000, 1 << 30), (1 << 31, 0)):
+        eng = TorchMergeEngine(resident=True, device="cpu")
+        eng.POOL_ID_CEILING = ceiling
+        eng.pool_flush_bytes = flush_bytes
+        ks = PortKeySpace()
+        for group in steps:
+            eng.merge_many(ks, [port_batch(b) for b in group])
+            assert eng._pool_size < ceiling
+        eng.flush(ks)
+        eng.close()
+        assert ks.canonical() == want[0]
+        assert sums(ks) == want[1]
+    eng = TorchMergeEngine(resident=True, device="cpu")
+    eng.POOL_ID_CEILING = 100
+    with pytest.raises(RuntimeError, match="int32"):
+        eng.merge_many(PortKeySpace(), [port_batch(b) for b in steps[0]])
+    assert eng._pool_size == 0
+    eng.close()

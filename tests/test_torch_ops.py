@@ -1,0 +1,281 @@
+"""Differential tests: the PyTorch port's ops against the JAX reference.
+
+Every port function runs on the CPU here, on the same numpy inputs as its
+JAX counterpart, and must agree EXACTLY (all results are int64 words or
+flags).  The plain versions of the CUDA kernels (K1 merge_elems, K2
+merge_counters, K4 segment_sum) are held against the reference's Pallas
+kernels in interpret mode and its XLA twins; K4 against the XLA twin and
+numpy.add.at (the reference's Pallas segment_sum does not trace on this
+JAX).  The kernels themselves are held against these plain versions on
+the card by chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from constdb_tpu.ops import bulk as JB
+from constdb_tpu.ops import dense as JD
+from constdb_tpu.ops import pallas_dense as PD
+from constdb_tpu.ops import segment as JS
+from constdb_tpu_torch.crdt import semantics as S
+from constdb_tpu_torch.ops import bulk as TB
+from constdb_tpu_torch.ops import dense as TD
+from constdb_tpu_torch.ops import kernels as KN
+from constdb_tpu_torch.ops import segment as TS
+
+NT = S.NEUTRAL_T
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def _same(port_out, ref_out):
+    port = port_out if isinstance(port_out, tuple) else (port_out,)
+    ref = ref_out if isinstance(ref_out, tuple) else (ref_out,)
+    assert len(port) == len(ref)
+    for p, r in zip(port, ref):
+        p = p.numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
+        r = np.asarray(r)
+        assert p.shape == r.shape
+        np.testing.assert_array_equal(p.astype(r.dtype), r)
+
+
+def _stamps(rng, n, lo=0, hi=6):
+    """Small stamp ranges force equal-stamp ties; ~1/6 neutral."""
+    x = rng.integers(lo, hi, n).astype(np.int64) << 22
+    x[rng.random(n) < 1 / 6] = NT
+    return x
+
+
+def _batch(rng, size, n_real, np_):
+    """Unique slot ids of n_real rows padded to np_ with distinct
+    out-of-range ids (the protocol of the reference's ops/bulk.py)."""
+    idx = np.empty(np_, dtype=np.int32)
+    idx[:n_real] = rng.permutation(size)[:n_real]
+    idx[n_real:] = size + np.arange(np_ - n_real)
+    return idx
+
+
+# ---------------------------------------------------------------- bulk ops
+
+BULK_CASES = ["bulk_max", "bulk_max1", "bulk_lww", "bulk_counters_vu",
+              "bulk_counters", "bulk_lww_src", "bulk_lww_src_iota",
+              "bulk_counters_vu_src", "bulk_counters_vu_src_iota",
+              "bulk_counters_src", "bulk_elems"]
+
+
+def _bulk_args(name, rng, i32_vals):
+    size, n_real, np_ = 64, 21, 32
+    idx = _batch(rng, size, n_real, np_)
+
+    def state(neutral=True):
+        return _stamps(rng, size) if neutral else \
+            rng.integers(-50, 50, size).astype(np.int64)
+
+    def col(neutral=True, small=False):
+        if not neutral:
+            v = rng.integers(-5, 5, np_).astype(np.int64)
+            v[:2] = (I64_MIN, I64_MAX)
+            return v.astype(np.int32) if small else v
+        return _stamps(rng, np_)
+
+    node = lambda: (rng.integers(0, 3, np_).astype(  # noqa: E731
+        np.int32 if i32_vals else np.int64))
+    src = lambda: np.full(size, -1, np.int32)  # noqa: E731
+    base = np.int32(rng.integers(0, 1000))
+    if name == "bulk_max":
+        st = rng.integers(0, 9, (size, 4)).astype(np.int64)
+        return (st, idx, rng.integers(0, 9, (np_, 4)).astype(np.int64)), {}
+    if name == "bulk_max1":
+        return (state(), idx, col()), {}
+    if name in ("bulk_lww", "bulk_elems"):
+        extra = ((state(False),) if name == "bulk_elems" else ())
+        args = (state(), state(False)) + extra + (idx, col(), node())
+        if name == "bulk_elems":
+            args += (col(),)
+        return args, {}
+    if name == "bulk_counters_vu":
+        return (state(False), state(), idx, col(False, i32_vals), col()), {}
+    if name == "bulk_counters":
+        return (state(False), state(), state(False), state(), idx,
+                col(False), col(), col(False), col()), {}
+    if name == "bulk_lww_src":
+        return (state(), state(False), src(), idx, col(), node(), base), {}
+    if name == "bulk_counters_vu_src":
+        return (state(False), state(), src(), idx, col(False, i32_vals),
+                col(), base), {}
+    if name == "bulk_counters_src":
+        return (state(False), state(), state(False), state(), src(), idx,
+                col(False), col(), col(False), col(), base), {}
+    r0, nrows = np.int32(7), np.int32(n_real)
+    if name == "bulk_lww_src_iota":
+        return (state(), state(False), src(), r0, nrows, col(), node(),
+                base), {"np_": np_}
+    if name == "bulk_counters_vu_src_iota":
+        return (state(False), state(), src(), r0, nrows,
+                col(False, i32_vals), col(), base), {"np_": np_}
+    raise AssertionError(name)
+
+
+@pytest.mark.parametrize("i32_vals", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", BULK_CASES)
+def test_bulk_ops_match_jax(name, seed, i32_vals):
+    args, kw = _bulk_args(name, np.random.default_rng(seed), i32_vals)
+    ref = getattr(JB, name)(*(jnp.asarray(a) if isinstance(a, np.ndarray)
+                              else a for a in args), **kw)
+    port = getattr(TB, name)(*(_t(a) if isinstance(a, np.ndarray) and
+                               a.ndim else a for a in args), **kw)
+    _same(port, ref)
+
+
+def test_gather_rows_and_device_full_match_jax():
+    rng = np.random.default_rng(3)
+    st = rng.integers(-9, 9, (32, 4)).astype(np.int64)
+    idx = rng.integers(0, 32, 16).astype(np.int32)
+    _same(TB.gather_rows(_t(st), _t(idx)), JB.gather_rows(st, idx))
+    _same(TB.gather_rows(_t(st[:, 0]), _t(idx)), JB.gather_rows(st[:, 0], idx))
+    _same(TB.device_full(16, NT), JB.device_full(16, NT))
+    got = TB.device_full(16, -1, i32=True)
+    assert got.dtype == torch.int32
+    _same(got, JB.device_full(16, -1, i32=True))
+
+
+def test_pad_rows_scatter_nowhere():
+    """Pad ids at or above the state size must leave the state untouched,
+    even when their values would win."""
+    st = np.zeros(8, np.int64)
+    idx = np.array([2, 8, 9, 10], np.int32)
+    vals = np.array([5, 99, 99, 99], np.int64)
+    out = TB.bulk_max1(_t(st), _t(idx), _t(vals)).numpy()
+    np.testing.assert_array_equal(out, [0, 0, 5, 0, 0, 0, 0, 0])
+
+
+# ------------------------------------------------------------- segment ops
+
+def _seg_inputs(rng, n_real=40, n_slots_real=9):
+    n_rows = 64
+    n_slots = 16
+    slot = np.full(n_rows, n_slots - 1, np.int64)
+    slot[:n_real] = rng.integers(0, n_slots_real, n_real)
+    a = np.full(n_rows, NT, np.int64)
+    a[:n_real] = _stamps(rng, n_real)
+    b = np.full(n_rows, NT, np.int64)
+    b[:n_real] = rng.integers(0, 3, n_real)
+    return slot, a, b, n_slots
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_segment_ops_match_jax(seed):
+    rng = np.random.default_rng(seed)
+    slot, a, b, ns = _seg_inputs(rng)
+    cur_t = _stamps(rng, ns)
+    cur_v = rng.integers(-9, 9, ns).astype(np.int64)
+    _same(TS.merge_counters(*map(_t, (slot, b, a, cur_v, cur_t)), ns),
+          JS.merge_counters(slot, b, a, cur_v, cur_t, ns))
+    d = rng.integers(0, 4, len(a)).astype(np.int64) << 22
+    cur_at, cur_an = _stamps(rng, ns), rng.integers(0, 3, ns).astype(np.int64)
+    cur_dt = rng.integers(0, 4, ns).astype(np.int64) << 22
+    _same(TS.merge_elems(*map(_t, (slot, a, b, d, cur_at, cur_an, cur_dt)),
+                         ns),
+          JS.merge_elems(slot, a, b, d, cur_at, cur_an, cur_dt, ns))
+    cols = [rng.integers(0, 9, len(a)).astype(np.int64) for _ in range(4)]
+    curs = [rng.integers(0, 9, ns).astype(np.int64) for _ in range(4)]
+    _same(TS.scatter_max4(_t(slot), *map(_t, cols), *map(_t, curs), ns),
+          JS.scatter_max4(slot, *cols, *curs, ns))
+    assert TS.next_pow2(33) == JS.next_pow2(33) == 64
+
+
+# ----------------------------------------------- K1 / K2 plain vs reference
+
+def _stack(rng, R, S_, lo, hi, neutral=True):
+    x = rng.integers(lo, hi, (R, S_)).astype(np.int64)
+    if neutral:
+        x[rng.random((R, S_)) < 0.15] = NT
+        x[:, :3] = NT  # columns no replica holds
+    return x
+
+
+@pytest.mark.parametrize("R,S_", [(1, 17), (3, 300), (8, 129)])
+def test_k1_merge_elems_plain_matches_pallas_and_xla(R, S_):
+    rng = np.random.default_rng(R * 1000 + S_)
+    at = _stack(rng, R, S_, 0, 5) << 22
+    at[at < 0] = NT
+    an = _stack(rng, R, S_, 0, 3, neutral=False)
+    dt = _stack(rng, R, S_, 0, 5, neutral=False) << 22
+    port = TD.dense_merge_elems(_t(at), _t(an), _t(dt))
+    _same(port, PD.merge_elems(jnp.asarray(at), jnp.asarray(an),
+                               jnp.asarray(dt), interpret=True))
+    _same(port, JD.dense_merge_elems(jnp.asarray(at), jnp.asarray(an),
+                                     jnp.asarray(dt)))
+    # the wrapper takes the plain version for CPU tensors, uncounted
+    before = dict(KN.LAUNCHES)
+    _same(KN.merge_elems(_t(at), _t(an), _t(dt)), port)
+    lww = KN.merge_lww(_t(at), _t(an))
+    _same(lww, JD.dense_merge_lww(jnp.asarray(at), jnp.asarray(an)))
+    assert KN.LAUNCHES == before
+
+
+@pytest.mark.parametrize("R,S_", [(1, 17), (3, 300), (8, 129)])
+def test_k2_merge_counters_plain_matches_pallas_and_xla(R, S_):
+    rng = np.random.default_rng(R * 77 + S_)
+    ts = _stack(rng, R, S_, 0, 4)
+    vals = _stack(rng, R, S_, -3, 3, neutral=False)
+    vals[0, :4] = (I64_MIN, I64_MAX, NT, NT + 1)
+    port = TD.dense_merge_counters(_t(vals), _t(ts))
+    _same(port, PD.merge_counters(jnp.asarray(vals), jnp.asarray(ts),
+                                  interpret=True))
+    _same(port, JD.dense_merge_counters(jnp.asarray(vals), jnp.asarray(ts)))
+    _same(KN.merge_counters(_t(vals), _t(ts)), port)
+
+
+def test_k2_values_below_neutral_follow_pallas_and_semantics():
+    """Every value tied on the max stamp below NEUTRAL_T, beside a row of
+    an older stamp: the reference's XLA twin fills that non-max row with
+    NEUTRAL_T, which then beats the tied values, while its Pallas
+    kernel and crdt/semantics.merge_counter_slot take the true max.  The
+    port follows the Pallas kernel (recorded in ROADMAP.md, queue 3)."""
+    vals = np.array([[NT - 9], [NT - 3], [0]], np.int64)
+    ts = np.array([[5], [5], [4]], np.int64)
+    port = TD.dense_merge_counters(_t(vals), _t(ts))
+    pallas = PD.merge_counters(jnp.asarray(vals), jnp.asarray(ts),
+                               interpret=True)
+    _same(port, pallas)
+    v, t = int(vals[0, 0]), int(ts[0, 0])
+    for r in range(1, 3):
+        v, t = S.merge_counter_slot(v, t, int(vals[r, 0]), int(ts[r, 0]))
+    assert (int(port[0][0]), int(port[1][0])) == (v, t) == (NT - 3, 5)
+    xla = JD.dense_merge_counters(jnp.asarray(vals), jnp.asarray(ts))
+    assert int(np.asarray(xla[0])[0]) == NT  # the reference disagreement
+
+
+# ------------------------------------------------------------ K4 plain
+
+@pytest.mark.parametrize("n,n_seg", [(1, 1), (33, 7), (1000, 100),
+                                     (4096, 3000)])
+def test_k4_segment_sum_plain_matches_xla_and_numpy(n, n_seg):
+    rng = np.random.default_rng(n + n_seg)
+    ids = rng.integers(0, n_seg, n).astype(np.int32)
+    vals = rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64)
+    if n >= 4:
+        # extremes in one segment: the exact sum wraps mod 2^64
+        ids[:4] = 0
+        vals[:4] = (I64_MAX, I64_MAX, I64_MIN, 7)
+    want = np.zeros(n_seg, np.int64)
+    with np.errstate(over="ignore"):
+        np.add.at(want, ids, vals)
+    port = TD.segment_sum(_t(ids), _t(vals), n_seg)
+    _same(port, want)
+    _same(port, JD.segment_sum(jnp.asarray(ids), jnp.asarray(vals),
+                               n_seg=n_seg))
+    _same(KN.segment_sum(_t(ids), _t(vals), n_seg), want)
+
+
+def test_dense_max_matches_xla():
+    rng = np.random.default_rng(9)
+    cols = rng.integers(-9, 9, (4, 16, 4)).astype(np.int64)
+    _same(TD.dense_max(_t(cols)), JD.dense_max(jnp.asarray(cols)))
