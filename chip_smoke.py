@@ -2,23 +2,36 @@
 """Chip smoke run of the PyTorch/CUDA port (constdb_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--keys N] [--replicas R] [--seed S]
+                          [--frames F] [--stream-keys K]
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device    torch.cuda.is_available() (else exit 2), the card's name and
                power limit from nvidia-smi;
   2. build     nvcc builds every kernel from constdb_tpu_torch/csrc;
   3. kernels   each kernel against its plain PyTorch version on the card,
-               bit-equal, at the catch-up path's shapes, with CUDA-event
-               median times of the kernel, the plain version and (where
-               one exists) a single PyTorch library call;
+               bit-equal, at its path's shapes, with CUDA-event median
+               times of the kernel, the plain version and (where one
+               exists) a single PyTorch library call;
   4. catch-up (auto)         make_workload(N keys, R replicas) in
                131072-key chunks, groups of 4R, resident TorchMergeEngine
                with dense_fold="auto", then flush; verified against the
                port's CpuMergeEngine oracle on a ~100k-key subsample; K4
-               must launch;
+               must launch.  Its engine and store stay open for phase 6;
   5. catch-up (device fold)  the aligned-counter shape, groups of R,
                dense_fold="cuda"; verified the same way; K1 and K2 must
-               launch.
+               launch;
+  6. steady stream           make_stream_workload(F frames over K keys
+               per type prefix) in coalescer flushes of 512 frames through
+               phase 4's engine and store (steady path on), a flush after
+               every 64th batch and at the end; verified against a CPU
+               replay on the stream's keys and re-verified on phase 4's
+               subsample; every round on the device, flushes partial, K3
+               must launch;
+  7. tensor    make_tensor_workload at bench.py --mode tensor's defaults
+               (128 keys x 4096 f32 x 8 contributors, 24 rounds of 128
+               rows) per strategy, every round reading all keys through
+               tensor_read_many; reads and state bit-identical to the
+               host leg; K5 must launch for every non-lww strategy.
 Then one JSON line of kernel records, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.
 
@@ -205,10 +218,365 @@ def kernel_phase(dev, seed: int) -> dict:
     return recs
 
 
+def profiled(fn) -> dict:
+    """Run fn() once under torch.profiler (host and CUDA activity) and
+    return its wall seconds, the device's busy seconds (the sum of the
+    device-side events: kernels and copies; None when the profiler
+    reports none) and the busy seconds by kernel name."""
+    import inspect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    kw = {"acc_events": True} \
+        if "acc_events" in inspect.signature(profile).parameters else {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 **kw) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for ev in prof.key_averages():
+        # host-side aten ops also carry their kernels' device time: count
+        # only the device-side events, once
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us:
+            by_name[ev.key[:80]] = us / 1e6
+    busy = sum(by_name.values()) or None
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    return {"wall_s": wall, "device_busy_s": busy,
+            "idle_share": None if busy is None else 1 - busy / wall,
+            "top_device_s": top}
+
+
+def same_bits(kernel: str, got, want) -> None:
+    """Raise unless paired float outputs agree bit for bit, except that a
+    NaN matches any NaN: IEEE 754 leaves a NaN result's sign and payload
+    open, and the card's f64 units propagate an input NaN's payload in
+    an order that depends on the instruction PyTorch picked."""
+    import torch
+    for a, b in zip(got, want):
+        iv = torch.int64 if a.dtype == torch.float64 else torch.int32
+        same = (a.contiguous().view(iv) == b.contiguous().view(iv)) | \
+            (torch.isnan(a) & torch.isnan(b))
+        if a.shape != b.shape or not bool(same.all()):
+            raise AssertionError(
+                f"{kernel} differs from its plain version at "
+                f"{int((~same).sum())} elements (bit pattern)")
+
+
+def steady_kernel_phase(dev, seed: int) -> dict:
+    """Hold K3 and K5 against their plain versions at the steady path's
+    shapes; -> {name: record with a `cases` list}."""
+    import torch
+
+    from constdb_tpu_torch.crdt import tensor as T
+    from constdb_tpu_torch.ops import bulk as B
+    from constdb_tpu_torch.ops import dense as D
+    from constdb_tpu_torch.ops import kernels as KN
+
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    i64 = torch.int64
+    recs = {}
+
+    # K3: int64 planes of 2^22 rows (the cap of the 1M-key catch-up's
+    # 3.2M-row counter plane), n unique random rows; small stamp ranges
+    # force primary ties, NEUTRAL_T rows never win, int64 extremes, and
+    # `base` sits at the top of the int32 range
+    sp = 1 << 22
+    p0 = torch.randint(0, 8, (sp,), generator=g, dtype=i64, device=dev)
+    p0[torch.rand(sp, generator=g, device=dev) < 0.1] = NEUTRAL_T
+    s0 = torch.randint(-4, 4, (sp,), generator=g, dtype=i64, device=dev)
+    src0 = torch.full((sp,), -1, dtype=torch.int32, device=dev)
+    p, s, src = p0.clone(), s0.clone(), src0.clone()
+    q, t, qsrc = p0.clone(), s0.clone(), src0.clone()
+
+    def restore():
+        # rewrites 80 MB, which also evicts the 50 MB L2
+        for dst, orig in ((p, p0), (s, s0), (src, src0), (q, p0), (t, s0),
+                          (qsrc, src0)):
+            dst.copy_(orig)
+
+    cases = []
+    for n in (1024, 32768):
+        idx = torch.randperm(sp, generator=g, device=dev)[:n].to(torch.int32)
+        bp = torch.randint(0, 8, (n,), generator=g, dtype=i64, device=dev)
+        bp[torch.rand(n, generator=g, device=dev) < 0.1] = NEUTRAL_T
+        bs = torch.randint(-4, 4, (n,), generator=g, dtype=i64, device=dev)
+        bp[:2] = torch.tensor([(1 << 63) - 1, -(1 << 63)], device=dev)
+        bs[:2] = torch.tensor([-(1 << 63), (1 << 63) - 1], device=dev)
+        base = (1 << 31) - n
+        restore()
+        KN.scatter_pair_src(p, s, src, idx, bp, bs, base)
+        B.bulk_lww_src(q, t, qsrc, idx, bp, bs, base)
+        torch.cuda.synchronize()
+        err = max_abs_err("K3 scatter_pair_src", [p, s, src.to(i64)],
+                          [q, t, qsrc.to(i64)])
+        outside = torch.ones(sp, dtype=torch.bool, device=dev)
+        outside[idx.to(i64)] = False
+        if not (torch.equal(p[outside], p0[outside]) and
+                torch.equal(s[outside], s0[outside]) and
+                torch.equal(src[outside], src0[outside])):
+            raise AssertionError("K3 scatter_pair_src wrote rows outside idx")
+        wins = int((src != src0).sum())
+        # each input read once (ids, the batch pair, the two plane values
+        # of every target row), each output written once (p, s, src of
+        # every winning row)
+        nbytes = n * 4 + n * 16 + n * 16 + wins * 20
+        b_ms, b_by = bound_ms(nbytes, 4 * n)
+        tm = time_ms(
+            {"ms": lambda: KN.scatter_pair_src(p, s, src, idx, bp, bs, base),
+             "plain_ms": lambda: B.bulk_lww_src(q, t, qsrc, idx, bp, bs,
+                                                base)},
+            flush=restore)
+        cases.append({**tm, "bound_ms": b_ms, "bound_by": b_by,
+                      "max_abs_err": err, "shape": [sp, n], "wins": wins})
+    recs["scatter_pair_src"] = {**cases[0], "library_ms": None,
+                                "cases": cases}
+    del p0, s0, src0, p, s, src, q, t, qsrc
+
+    # K5: bench.py --mode tensor's read shape: G = 128 keys x n = 8
+    # contributors x 4096 elements, gathered from a 1024-row pool; NaN,
+    # +-0, +-inf and subnormals mixed into the payloads
+    G, n, kp = 128, 8, 4096
+    scratch = torch.empty(16 << 20, dtype=i64, device=dev)
+
+    def flush_l2():
+        scratch.fill_(1)
+
+    cases = []
+    for strat, dtype in ((T.STRAT_SUM, torch.float32),
+                         (T.STRAT_MAXMAG, torch.float32),
+                         (T.STRAT_TRIMMED, torch.float32),
+                         (T.STRAT_TRIMMED, torch.float64)):
+        buf = torch.randn((G * n, kp), generator=g, device=dev,
+                          dtype=dtype) * 4
+        special = torch.tensor([float("nan"), 0.0, -0.0, float("inf"),
+                                -float("inf"), 1e-40 if dtype ==
+                                torch.float32 else 1e-310],
+                               dtype=dtype, device=dev)
+        pick = torch.rand((G * n, kp), generator=g, device=dev) < 0.02
+        which = torch.randint(0, len(special), (G * n, kp), generator=g,
+                              device=dev)
+        buf = torch.where(pick, special[which], buf)
+        idx = torch.randperm(G * n, generator=g,
+                             device=dev).to(torch.int32)
+        div = n - 2
+        got = KN.tensor_take_reduce(buf, idx, div, strat=strat, n=n, g=G)
+        want = D.tensor_take_reduce(buf, idx, div, strat=strat, n=n, g=G)
+        torch.cuda.synchronize()
+        same_bits("K5 tensor_take_reduce", [got], [want])
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+        esz = buf.element_size()
+        nbytes = G * n * 4 + G * n * kp * esz + G * kp * esz
+        ops = G * kp * n * (3 if strat == T.STRAT_TRIMMED else 1)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        tm = time_ms(
+            {"ms": lambda: KN.tensor_take_reduce(buf, idx, div, strat=strat,
+                                                 n=n, g=G),
+             "plain_ms": lambda: D.tensor_take_reduce(buf, idx, div,
+                                                      strat=strat, n=n, g=G)},
+            flush=flush_l2)
+        cases.append({**tm, "bound_ms": b_ms, "bound_by": b_by,
+                      "max_abs_err": err, "shape": [G, n, kp],
+                      "strategy": T.STRATEGY_NAMES[strat],
+                      "dtype": str(dtype).replace("torch.", "")})
+    recs["tensor_take_reduce"] = {**cases[0], "library_ms": None,
+                                  "cases": cases}
+    del scratch
+    return recs
+
+
+def stream_phase(dev, eng, store, catch_batches, n_keys: int, frames: int,
+                 stream_keys: int, seed: int) -> dict:
+    """Phase 6: the steady replication stream through the caught-up
+    engine, verified against a CPU replay; -> launches and timings."""
+    import torch
+
+    from constdb_tpu_torch import workload as W
+    from constdb_tpu_torch.ops import kernels as KN
+
+    t0 = time.perf_counter()
+    batches = W.make_stream_workload(frames, stream_keys, seed=seed)
+    t_gen = time.perf_counter() - t0
+    n_frames = sum(len(b.keys) for b in batches)  # one key row a frame
+    rows = sum(b.n_rows for b in batches)
+    g0 = {k: getattr(eng, k) for k in (
+        "dev_rounds_resident", "host_micro_rounds", "flush_rows_downloaded",
+        "flush_rows_full_equiv", "bytes_h2d", "bytes_d2h")}
+    fs0 = dict(eng.family_secs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launches()
+    # the last 64 flushes run under the profiler (device busy share);
+    # the rates come from the unprofiled rest
+    cut = len(batches) - 64
+    t0 = time.perf_counter()
+    for i, b in enumerate(batches[:cut]):
+        eng.merge_many(store, [b])
+        if i % 64 == 63:
+            eng.flush(store)
+    eng.flush(store)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    frames_cut = sum(len(b.keys) for b in batches[:cut])
+    rows_cut = sum(b.n_rows for b in batches[:cut])
+
+    def window():
+        for b in batches[cut:]:
+            eng.merge_many(store, [b])
+        eng.flush(store)
+
+    prof = profiled(window)
+    launches = dict(KN.LAUNCHES)
+    d = {k: getattr(eng, k) - v for k, v in g0.items()}
+    t0 = time.perf_counter()
+    oracle = W.replay_oracle(batches)
+    keys = W.batch_keys(batches)
+    bad = W.compare_canonical(store.canonical(keys=keys), oracle.canonical())
+    bad += W.compare_counter_sums(store, oracle, keys)
+    checked, bad_sub = W.verify_store(store, catch_batches, n_keys)
+    t_ver = time.perf_counter() - t0
+    if bad or bad_sub:
+        raise AssertionError(f"steady stream: {bad} of {len(keys)} stream "
+                             f"keys and {bad_sub} of {checked} catch-up "
+                             "keys differ from the CPU oracle")
+    if not d["dev_rounds_resident"] or d["host_micro_rounds"]:
+        raise AssertionError(f"steady stream: rounds on the device "
+                             f"{d['dev_rounds_resident']}, on the host "
+                             f"{d['host_micro_rounds']}")
+    if not 0 < d["flush_rows_downloaded"] < d["flush_rows_full_equiv"]:
+        raise AssertionError("steady stream: flushes were not partial "
+                             f"({d['flush_rows_downloaded']} of "
+                             f"{d['flush_rows_full_equiv']} rows)")
+    if not launches["scatter_pair_src"]:
+        raise AssertionError("steady stream did not launch K3")
+    out = {"wall_s": wall, "frames": n_frames, "batches": len(batches),
+           "rows": rows, "frames_per_s": frames_cut / wall,
+           "rows_per_s": rows_cut / wall, "launches": launches,
+           "profiled_window": prof,
+           "verified_stream_keys": len(keys), "verified_catchup_keys":
+           checked, "mismatches": 0, "gen_s": t_gen, "verify_s": t_ver,
+           **{k: v for k, v in d.items()},
+           "family_secs": {k: round(v - fs0[k], 3)
+                           for k, v in eng.family_secs.items()},
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    eng.close()
+    log(f"steady stream: {n_frames} frames over {stream_keys} keys per "
+        f"prefix in {len(batches)} flushes of 512; the first {cut} "
+        f"flushes {wall:.3f} s ({out['frames_per_s']:.0f} frames/s, "
+        f"{out['rows_per_s']:.0f} rows/s), the last 64 profiled: device "
+        f"busy {prof['device_busy_s']} s of {prof['wall_s']:.3f} s; up {d['bytes_h2d']} B, down {d['bytes_d2h']} B, micro "
+        f"{out['family_secs']['micro']} s, flush "
+        f"{out['family_secs']['flush']} s, rounds on the device "
+        f"{d['dev_rounds_resident']}, on the host {d['host_micro_rounds']}, "
+        f"flush rows {d['flush_rows_downloaded']} of "
+        f"{d['flush_rows_full_equiv']}, launches={launches}, peak "
+        f"{out['peak_mem_bytes']} B; verified {len(keys)} stream keys and "
+        f"{checked} catch-up keys, 0 mismatches; reductions: collection "
+        f"DELs (0.2% of frames) left out {json.dumps(out)}")
+    return out
+
+
+def tensor_phase(dev) -> dict:
+    """Phase 7: tensor registers at bench.py --mode tensor's defaults,
+    device leg against the host leg per strategy."""
+    import numpy as np
+    import torch
+
+    from constdb_tpu_torch import workload as W
+    from constdb_tpu_torch.engine.cpu import CpuMergeEngine
+    from constdb_tpu_torch.engine.cuda import TorchMergeEngine
+    from constdb_tpu_torch.ops import kernels as KN
+    from constdb_tpu_torch.store.keyspace import KeySpace
+
+    n_keys, elems, n_nodes, rounds, batch_rows = 128, 4096, 8, 24, 128
+    launches = dict.fromkeys(KN.LAUNCHES, 0)
+    legs = []
+    engines = []
+    for strat in ("avg", "maxmag", "trimmed-mean", "sum", "lww"):
+        batches = W.make_tensor_workload(rounds, batch_rows, n_keys,
+                                         n_nodes, elems, strat)
+        rows = sum(len(b.tns_ki) for b in batches)
+        eng = TorchMergeEngine(resident=True, steady=True, warmup=0,
+                               device=dev)
+        store = KeySpace()
+        torch.cuda.synchronize()
+        KN.reset_launches()
+        t0 = time.perf_counter()
+        dev_reads = []
+        for b in batches:
+            eng.merge_many(store, [b])
+            dev_reads.append(eng.tensor_read_many(store, range(n_keys)))
+        eng.flush(store)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got_l = dict(KN.LAUNCHES)
+        for k, v in got_l.items():
+            launches[k] += v
+        engines.append((eng, store))
+        host = KeySpace()
+        cpu = CpuMergeEngine()
+        t0 = time.perf_counter()
+        bad = 0
+        for b, reads in zip(batches, dev_reads):
+            cpu.merge_many(host, [b])
+            for kid in range(n_keys):
+                want = host.tensor_read(kid)
+                got = reads[kid]
+                if want is None or got is None:
+                    bad += (want is None) != (got is None)
+                elif want.tobytes() != np.asarray(got).tobytes():
+                    bad += 1
+        host_wall = time.perf_counter() - t0
+        if store.canonical() != host.canonical():
+            bad += 1
+        if bad:
+            raise AssertionError(f"tensor {strat}: {bad} reads or states "
+                                 "differ from the host leg")
+        if not eng.tns_dev_rows or eng.tns_host_rows:
+            raise AssertionError(f"tensor {strat}: rows on the device "
+                                 f"{eng.tns_dev_rows}, on the host "
+                                 f"{eng.tns_host_rows}")
+        if strat != "lww" and not got_l["tensor_take_reduce"]:
+            raise AssertionError(f"tensor {strat} did not launch K5")
+        leg = {"strategy": strat, "wall_s": wall, "rows": rows,
+               "rows_per_s": rows / wall, "reads": rounds * n_keys,
+               "host_leg_s": host_wall, "tns_dev_rows": eng.tns_dev_rows,
+               "launches": got_l, "family_secs":
+               {k: round(v, 3) for k, v in eng.family_secs.items()}}
+        legs.append(leg)
+        log(f"tensor {strat}: {rounds} rounds x {batch_rows} rows "
+            f"({rows} rows, {rounds * n_keys} reads of {n_keys} keys x "
+            f"{elems} f32 x {n_nodes} contributors): {wall:.3f} s "
+            f"({leg['rows_per_s']:.0f} rows/s; host leg with its reads "
+            f"{host_wall:.3f} s), reads and state bit-identical to the "
+            f"host leg, launches={got_l} {json.dumps(leg)}")
+
+    def read_rounds():
+        for eng, store in engines:
+            eng.tensor_read_many(store, range(n_keys))
+
+    # one more read round of every strategy, profiled (device busy share)
+    prof = profiled(read_rounds)
+    for eng, _store in engines:
+        eng.close()
+    log(f"tensor: one read round of each strategy, profiled: device busy "
+        f"{prof['device_busy_s']} s of {prof['wall_s']:.4f} s "
+        f"{json.dumps(prof)}")
+    return {"legs": legs, "launches": launches, "profiled_reads": prof}
+
+
 def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
-            fold: str, aligned: bool, label: str) -> dict:
+            fold: str, aligned: bool, label: str):
     """One streamed catch-up through TorchMergeEngine, verified against
-    the CPU oracle; -> launches and timings."""
+    the CPU oracle; -> (launches and timings, engine, store, batches)."""
     import torch
 
     from constdb_tpu_torch import workload as W
@@ -236,7 +604,6 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(KN.LAUNCHES)
-    eng.close()
     t0 = time.perf_counter()
     checked, mismatches = W.verify_store(store, batches, n_keys)
     t_ver = time.perf_counter() - t0
@@ -255,7 +622,7 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
         f"({out['keys_per_s']:.0f} keys/s), folds={eng.folds}, "
         f"launches={launches}, verified {checked} keys, 0 mismatches "
         f"(gen {t_gen:.1f} s, verify {t_ver:.1f} s) {json.dumps(out)}")
-    return out
+    return out, eng, store, batches
 
 
 def main() -> int:
@@ -263,6 +630,8 @@ def main() -> int:
     ap.add_argument("--keys", type=int, default=1_000_000)
     ap.add_argument("--replicas", type=int, default=8)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--frames", type=int, default=200_000)
+    ap.add_argument("--stream-keys", type=int, default=20_000)
     args = ap.parse_args()
 
     import torch
@@ -287,43 +656,65 @@ def main() -> int:
                 log(f"build[{name}]: {line.strip()}")
 
     recs = kernel_phase(dev, args.seed)
+    recs.update(steady_kernel_phase(dev, args.seed))
     log(f"kernels: SM clock, max SM clock after timing: {sm_clock()}")
     for name, r in recs.items():
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"kernels: {name} {r['shape']} bit-equal to plain; "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {lib} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+        for c in r.get("cases", [r]):
+            lib = "n/a" if r["library_ms"] is None \
+                else f"{r['library_ms']:.4f}"
+            what = " ".join(str(c[k]) for k in ("strategy", "dtype")
+                            if k in c)
+            log(f"kernels: {name} {c['shape']} {what} bit-equal to plain; "
+                f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
+                f"library {lib} ms, bound {c['bound_ms']:.3g} ms "
+                f"({c['bound_by']})")
 
     rep = args.replicas
-    auto = catchup(dev, args.keys, rep, args.seed, 4 * rep, "auto", False,
-                   "catch-up (auto)")
+    auto, eng, store, catch_batches = catchup(
+        dev, args.keys, rep, args.seed, 4 * rep, "auto", False,
+        "catch-up (auto)")
     if not auto["launches"]["segment_sum"]:
         raise AssertionError("catch-up (auto) did not launch K4 segment_sum")
-    fold = catchup(dev, args.keys, rep, args.seed, rep, "cuda", True,
-                   "catch-up (device fold)")
+    fold, eng2, _store2, _b2 = catchup(dev, args.keys, rep, args.seed, rep,
+                                       "cuda", True, "catch-up (device fold)")
+    eng2.close()
+    del eng2, _store2, _b2
     for k in ("merge_elems", "merge_counters"):
         if not fold["launches"][k]:
             raise AssertionError(f"catch-up (device fold) did not launch {k}")
+    stream = stream_phase(dev, eng, store, catch_batches, args.keys,
+                          args.frames, args.stream_keys, args.seed)
+    del eng, store, catch_batches
+    tensor = tensor_phase(dev)
 
     replaces = {
         "merge_elems": "constdb_tpu/ops/pallas_dense.py:105",
         "merge_counters": "constdb_tpu/ops/pallas_dense.py:152",
-        "segment_sum": "constdb_tpu/ops/pallas_dense.py:433"}
+        "scatter_pair_src": "constdb_tpu/ops/pallas_dense.py:256",
+        "segment_sum": "constdb_tpu/ops/pallas_dense.py:433",
+        "tensor_take_reduce": "constdb_tpu/ops/pallas_dense.py:380"}
     source = {"merge_elems": "constdb_tpu_torch/csrc/merge_fold.cu",
               "merge_counters": "constdb_tpu_torch/csrc/merge_fold.cu",
-              "segment_sum": "constdb_tpu_torch/csrc/segment_sum.cu"}
+              "scatter_pair_src": "constdb_tpu_torch/csrc/scatter_pair.cu",
+              "segment_sum": "constdb_tpu_torch/csrc/segment_sum.cu",
+              "tensor_take_reduce":
+              "constdb_tpu_torch/csrc/tensor_reduce.cu"}
     kernels = []
     for name, r in recs.items():
         by_path = {"catchup_auto": auto["launches"][name],
-                   "catchup_fold": fold["launches"][name]}
-        kernels.append({
+                   "catchup_fold": fold["launches"][name],
+                   "stream": stream["launches"][name],
+                   "tensor": tensor["launches"][name]}
+        rec = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"]}
+        if "cases" in r:
+            rec["cases"] = r["cases"]
+        kernels.append(rec)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

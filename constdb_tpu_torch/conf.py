@@ -18,6 +18,14 @@ ENV_REGISTRY = {
                                    "cores, at most 4)",
     "CONSTDB_TORCH_POOL_FLUSH_MB": "resident win-pool bytes that trigger "
                                    "an automatic flush (default 1536)",
+    "CONSTDB_TORCH_RESIDENT": "steady-state micro path: auto (default: on "
+                              "for a CUDA device, off for the CPU) | 1 | 0",
+    "CONSTDB_TORCH_RESIDENT_WARMUP": "stable micro rounds a cold plane "
+                                     "waits before it is mirrored on the "
+                                     "device (default 2)",
+    "CONSTDB_TORCH_TENSOR_POOL_MB": "resident tensor payload bytes above "
+                                    "which the pools flush and drop "
+                                    "(default 512)",
 }
 
 
@@ -30,6 +38,11 @@ def _env_read(name: str):
 def env_int(name: str, default: int) -> int:
     v = _env_read(name)
     return default if v is None or v == "" else int(v)
+
+
+def env_str(name: str, default: str) -> str:
+    v = _env_read(name)
+    return default if v is None or v == "" else v
 
 
 def env_flag(name: str, default: bool) -> bool:

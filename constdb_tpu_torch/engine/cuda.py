@@ -23,10 +23,15 @@ values resolve through a device int32 `src` plane at `flush()`, which
 also re-derives the counter sums on the card (K4 segment_sum over the
 resident slot contributions).
 
-Not in this slice: the steady-state micro path (`steady=True` raises),
-the device tensor-register pools (tensor rows take the host twin) and
-mesh partitioning.  Non-unique batches at or below HOST_SCATTER_MAX take
-the host round, as the reference does with its steady path off.
+**Steady state** (`steady`, on by default for a resident engine on a
+CUDA device): op-stream micro-batches (the replication coalescer's
+flushes, at most HOST_SCATTER_MAX rows) fold their duplicate slots on
+the host and merge the unique winners IN PLACE into the resident planes
+with K3 scatter_pair_src; `flush()` then gathers and downloads only the
+dirty rows.  Tensor-register payloads live in resident device pools and
+batched reads (`tensor_read_many`) reduce on the card with K5
+tensor_take_reduce.  With `steady` off, micro-batches take the host
+round, as the reference does.  Mesh partitioning is not ported.
 
 `dense_fold` picks the aligned-fold backend: "auto" = the CUDA kernels
 on a CUDA device and the plain PyTorch versions on the CPU, "cuda" the
@@ -50,7 +55,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..conf import env_flag, env_int
+from ..conf import env_flag, env_int, env_str
 from ..crdt import semantics as S
 from ..ops import bulk as B
 from ..ops import dense as D
@@ -67,6 +72,7 @@ _I64 = np.int64
 _I32 = np.int32
 
 FOLD_MODES = ("auto", "cuda", "eager", "off")
+FAMILIES = ("env", "reg", "cnt", "el", "tns")
 
 
 def _pad(arr: np.ndarray, size: int, fill) -> np.ndarray:
@@ -92,6 +98,10 @@ _FAMILIES = {
 def _host_table(store: KeySpace, fam: str):
     return store.el if fam == "el" else (store.cnt if fam == "cnt"
                                          else store.keys)
+
+
+def _fam_rows(store: KeySpace, fam: str) -> int:
+    return _host_table(store, fam).n
 
 
 # ------------------------------------------------------- host group combine
@@ -172,7 +182,9 @@ class TorchMergeEngine:
     FAM_ORDER = ("env", "reg", "cnt", "el")
 
     def __init__(self, resident: bool = False, dense_fold: str = "auto",
-                 pipeline: Optional[bool] = None, steady: bool = False,
+                 pipeline: Optional[bool] = None,
+                 steady: Optional[bool] = None,
+                 warmup: Optional[int] = None,
                  device: Union[str, torch.device, None] = None) -> None:
         """`device`: None or "cuda" = the current CUDA device (raises when
         there is none), "cpu" = the CPU with the plain versions of every
@@ -180,28 +192,63 @@ class TorchMergeEngine:
         stage the families' host prep on a worker pool while the main
         thread dispatches (None = on unless CONSTDB_TORCH_PIPELINE=0);
         results are byte-identical to the serial path because every stage
-        touches only its own host plane."""
-        if steady:
-            raise NotImplementedError(
-                "the steady-state micro path is not ported yet")
+        touches only its own host plane.
+
+        `steady`: the steady-state path of a resident engine (module
+        docstring).  None = CONSTDB_TORCH_RESIDENT: "auto" (default) is
+        on for a CUDA device and off for the CPU, "1" on, "0" off.  A
+        touched plane that holds no fresh mirror is COLD and merges on
+        its host twin until its host version has been stable for more
+        than `warmup` micro rounds (None = CONSTDB_TORCH_RESIDENT_WARMUP,
+        default 2), so op writes between rounds cannot force a whole
+        mirror upload per round."""
         if dense_fold not in FOLD_MODES:
             raise ValueError(f"dense_fold must be one of {FOLD_MODES}, "
                              f"got {dense_fold!r}")
         self.device = resolve_device(device)
         self.dense_fold = dense_fold
         self.resident = resident
+        if steady is None:
+            mode = env_str("CONSTDB_TORCH_RESIDENT", "auto")
+            steady = self.device.type == "cuda" if mode == "auto" \
+                else mode != "0"
+        self.steady = bool(steady)
+        self.warmup = env_int("CONSTDB_TORCH_RESIDENT_WARMUP", 2) \
+            if warmup is None else int(warmup)
+        self._warm_streak: dict[str, tuple[int, int]] = {}
         self._fold_on = dense_fold != "off"
         self.folds = 0          # aligned folds performed (observability)
+        # stale-mirror rebuilds per family (op writes between rounds)
+        self.mirror_rebuilds = dict.fromkeys(FAMILIES, 0)
         # cumulative host seconds per family on the critical path
-        # (stage-wait + dispatch); `flush` includes its downloads and
-        # `host` the host rounds.  stage_secs: background staging time.
+        # (stage-wait + dispatch); `flush` includes its downloads, `host`
+        # the whole-round host fallback and `micro` the steady rounds.
+        # stage_secs: background staging time.
         self.family_secs = {"env": 0.0, "reg": 0.0, "cnt": 0.0, "el": 0.0,
-                            "flush": 0.0, "host": 0.0}
+                            "flush": 0.0, "host": 0.0, "micro": 0.0}
         self.stage_secs = {"env": 0.0, "reg": 0.0, "cnt": 0.0, "el": 0.0}
         if pipeline is None:
             pipeline = env_flag("CONSTDB_TORCH_PIPELINE", True)
         self.pipeline = bool(pipeline)
+        # micro rounds merged in place on the device / on the host
+        self.dev_rounds_resident = 0
+        self.host_micro_rounds = 0
+        # rows flushes downloaded, and rows a whole-plane flush would have
+        # downloaded at the same points (proves the flushes partial)
         self.flush_rows_downloaded = 0
+        self.flush_rows_full_equiv = 0
+        # resident tensor payload pools: one [cap, elems] device pool per
+        # (dtype, elems) class; slot stamps stay host-authoritative, and
+        # `dirty` pool slots are device-newer than the host payload list
+        self._tns_pools: dict[tuple, dict] = {}
+        self._tns_ver = 0
+        self._tns_epoch = 0            # bumped whenever the pools drop
+        self._tns_read_cache: dict = {}
+        self._tns_bytes = 0            # device payload bytes resident
+        self.tns_dev_rows = 0          # tensor rows merged on the device
+        self.tns_host_rows = 0         # tensor rows merged on the host
+        self.tns_pool_cap = env_int("CONSTDB_TORCH_TENSOR_POOL_MB",
+                                    512) << 20
         self._stage_ex = None
         self._stage_pending = None
         # host<->device transfer accounting
@@ -395,10 +442,11 @@ class TorchMergeEngine:
         pass per CRDT family.  The returned MergeStats carries this call's
         transfer deltas."""
         h0, d0 = self.bytes_h2d, self.bytes_d2h
-        f0 = self.flush_rows_downloaded
+        r0, f0 = self.dev_rounds_resident, self.flush_rows_downloaded
         st = self._merge_many_impl(store, batches)
         st.dev_upload_bytes = self.bytes_h2d - h0
         st.dev_download_bytes = self.bytes_d2h - d0
+        st.dev_rounds_resident = self.dev_rounds_resident - r0
         st.flush_rows_downloaded = self.flush_rows_downloaded - f0
         return st
 
@@ -432,15 +480,37 @@ class TorchMergeEngine:
             resolved.append((b, kid_of))
         if not self._unique_ok and \
                 sum(b.n_rows for b in batches) <= self.HOST_SCATTER_MAX:
-            # op-stream micro-batches: the host round (the steady device
-            # path is not in this slice).  Resident mirrors of the touched
-            # planes sync down first.
+            # op-stream micro-batches.  The steady placement merges warm
+            # families in place into the resident planes; cold families
+            # take their host twins (see _micro_placement)
+            placement = self._micro_placement(store, resolved)
+            if placement is not None:
+                t0 = time.perf_counter()
+                for b, kid_of in resolved:
+                    self._merge_micro_resident(store, b, kid_of, st,
+                                               placement)
+                if any(placement.values()):
+                    self.dev_rounds_resident += 1
+                elif placement:
+                    self.host_micro_rounds += 1
+                # an empty placement (env-only / delete-only round) counts
+                # in neither gauge: no device family was touched
+                self.family_secs["micro"] += time.perf_counter() - t0
+                if self.needs_flush and \
+                        self._pool_bytes > self.pool_flush_bytes:
+                    self.flush(store)
+                return st
+            # whole-round host fallback (steady off): resident mirrors of
+            # the touched planes sync down first
             from .hostbatch import merge_host_batch
             for fam in list(self._res):
                 self._drop_family(store, fam)
+            self.host_micro_rounds += 1
             t0 = time.perf_counter()
+            rows0 = st.tensor_rows
             for b, kid_of in resolved:
                 merge_host_batch(store, b, kid_of, st)
+            self.tns_host_rows += st.tensor_rows - rows0
             self.family_secs["host"] += time.perf_counter() - t0
             return st
         # a src-tracked pool must resolve before a bulk branch that does
@@ -479,13 +549,13 @@ class TorchMergeEngine:
                 plan = self._timed_stage(fam, stage[fam], store, resolved, st)
                 dispatch[fam](store, plan, st)
                 self.family_secs[fam] += time.perf_counter() - t0
-        # tensor rows (few, payload-heavy) take the host twin: the device
-        # payload pools are not in this slice
-        if any(len(b.tns_ki) for b, _ in resolved):
-            from .hostbatch import merge_host_tns
-            for b, kid_of in resolved:
-                if len(b.tns_ki):
-                    merge_host_tns(store, b, kid_of, st)
+        # tensor rows (few, payload-heavy) ride the resident payload
+        # pools whenever the steady path is on; the host twin otherwise
+        tns_device = self.resident and self.steady
+        for b, kid_of in resolved:
+            if len(b.tns_ki):
+                self._merge_micro_tns(store, b, kid_of, st,
+                                      device=tns_device)
         for b, _ in resolved:
             for i, key in enumerate(b.del_keys):
                 store.record_key_delete(key, int(b.del_t[i]))
@@ -546,7 +616,15 @@ class TorchMergeEngine:
     def flush(self, store: KeySpace) -> None:
         """Write resident device state back into the host keyspace
         (resident mode only; a no-op otherwise), re-derive the counter
-        sums (K4 on the card) and enqueue element tombstones.
+        sums and enqueue element tombstones.
+
+        Dirty-row accounting: a family whose merges since the last flush
+        were all steady micro rounds carries its dirty rows, and only
+        those rows are gathered on the device and downloaded, with the
+        counter sums updated by the old-vs-new contribution delta of
+        exactly those rows.  A bulk merge marks its plane whole
+        (dirty=None): the plane downloads whole and the sums re-derive
+        (K4 on the card).  An untouched family costs nothing.
 
         Every family's downloads start up front, into pinned host buffers
         with an event recorded after each family; then families are
@@ -558,67 +636,68 @@ class TorchMergeEngine:
             return
         self._join_staging()
         t0 = time.perf_counter()
-        pending: dict[str, dict] = {}
+        # fam -> (dirty rows or None for the whole plane, {name: tensor})
+        pending: dict[str, tuple] = {}
         for fam, res in self._res.items():
             n = res["n"]
-            if n == 0 or res.get("clean"):
+            if n == 0:
                 continue
+            dirty = res.get("dirty")
+            if dirty is not None and not dirty:
+                continue  # untouched since the last flush: host == device
             cols = res["cols"]
             names = ["stack"] if fam == "env" else \
                 [name for name, _ in _FAMILIES[fam]]
             written = res.get("written")
-            recon = res.get("recon") if res.get("src") is not None else None
+            src = res.get("src")
+            recon = res.get("recon") if src is not None else None
             want = [name for name in names
                     if not (written is not None and name not in written)
                     and not (recon and name in recon)]
-            fp = {name: cols[name][:n] for name in want}
-            if res.get("src") is not None:
-                fp["src"] = res["src"][:n]
-            if fp:
-                pending[fam] = fp
-                self.flush_rows_downloaded += n
+            self.flush_rows_full_equiv += n
+            if dirty is None:
+                rows_d = None
+                fp = {name: cols[name][:n] for name in want}
+                if src is not None:
+                    fp["src"] = src[:n]
+                if fp:
+                    self.flush_rows_downloaded += n
+            else:
+                rows_d = np.unique(np.concatenate(dirty))
+                idx = self._h2d(rows_d.astype(_I32))
+                fp = {name: B.gather_rows(cols[name], idx) for name in want}
+                if src is not None:
+                    fp["src"] = B.gather_rows(src, idx)
+                self.flush_rows_downloaded += len(rows_d)
+            pending[fam] = (rows_d, fp)
         started: dict[str, tuple] = {}
-        for fam, fp in pending.items():
+        for fam, (rows_d, fp) in pending.items():
             hosts = {name: self._start_get(t) for name, t in fp.items()}
             ev = None
             if self.device.type == "cuda":
                 ev = torch.cuda.Event()
                 ev.record()
-            started[fam] = (hosts, ev)
+            started[fam] = (rows_d, hosts, ev)
         pending.clear()
 
-        for fam, (hosts, ev) in started.items():
+        whole_cnt = False
+        for fam, (rows_d, hosts, ev) in started.items():
             if ev is not None:
                 ev.synchronize()
             res = self._res[fam]
-            n = res["n"]
             host = {}
             for name, h in hosts.items():
                 self.bytes_d2h += h.numel() * h.element_size()
                 host[name] = h.numpy()
-            table = _host_table(store, fam)
-            el_dt_changed = fam == "el" and "del_t" in host
-            if el_dt_changed:
-                old_dt = table.del_t[:n].copy()
-            if fam == "env":
-                out = host["stack"]
-                for i, (name, _) in enumerate(_FAMILIES["env"]):
-                    table.col(name)[:n] = out[:, i]
+            if rows_d is None:
+                whole_cnt |= fam == "cnt" and bool(host)
+                self._apply_whole(store, fam, res, host)
             else:
-                for name, _ in _FAMILIES[fam]:
-                    if name in host:
-                        table.col(name)[:n] = host[name]
-            if "src" in host:
-                self._apply_src(store, fam, host["src"], res)
-                res["src"] = None  # resolved; fresh tracking next round
+                self._apply_dirty(store, fam, res, host, rows_d)
             if res.get("written") is not None:
                 res["written"] = set()
-            if el_dt_changed:
-                self._enqueue_elem_garbage(store, np.arange(n),
-                                           table.add_t[:n], table.del_t[:n],
-                                           old_dt)
-            # host now equals device for the whole plane
-            res["clean"] = True
+            # host now equals device for this plane
+            res["dirty"] = []
 
         if self._el_del_touched:
             # host-maintained del side (el src path): with add_t now
@@ -631,22 +710,84 @@ class TorchMergeEngine:
         self._val_pool.clear()
         self._pool_size = 0
         self._pool_bytes = 0
-        if "cnt" in started and self._res["cnt"]["n"]:
+        # the dirty path applied its sum deltas; a whole-plane cnt flush
+        # re-derives every sum
+        if whole_cnt and self._res["cnt"]["n"]:
             self._recompute_sums(store)
+        self._flush_tns(store)
         self.needs_flush = False
         self.family_secs["flush"] += time.perf_counter() - t0
 
+    def _apply_whole(self, store: KeySpace, fam: str, res: dict,
+                     host: dict) -> None:
+        """Consume a whole-plane download."""
+        n = res["n"]
+        table = _host_table(store, fam)
+        el_dt_changed = fam == "el" and "del_t" in host
+        if el_dt_changed:
+            old_dt = table.del_t[:n].copy()
+        if fam == "env":
+            if "stack" in host:
+                out = host["stack"]
+                for i, (name, _) in enumerate(_FAMILIES["env"]):
+                    table.col(name)[:n] = out[:, i]
+        else:
+            for name, _ in _FAMILIES[fam]:
+                if name in host:
+                    table.col(name)[:n] = host[name]
+        if "src" in host:
+            self._apply_src(store, fam, host["src"], res)
+            res["src"] = None  # resolved; fresh tracking next round
+        if el_dt_changed:
+            self._enqueue_elem_garbage(store, np.arange(n), table.add_t[:n],
+                                       table.del_t[:n], old_dt)
+
+    def _apply_dirty(self, store: KeySpace, fam: str, res: dict, host: dict,
+                     rows_d: np.ndarray) -> None:
+        """Consume a dirty-row download (`rows_d` sorted unique).  The el
+        del side is host-maintained on the micro path; its GC entries
+        ride _el_del_touched."""
+        table = _host_table(store, fam)
+        if fam == "cnt":
+            # the incremental sum delta needs the PRE-flush contributions
+            # of exactly the dirty rows
+            old_contrib = store.cnt.val[rows_d] - store.cnt.base[rows_d]
+        if fam == "env":
+            if "stack" in host:
+                for i, (name, _) in enumerate(_FAMILIES["env"]):
+                    table.col(name)[rows_d] = host["stack"][:, i]
+        else:
+            for name, _ in _FAMILIES[fam]:
+                if name in host:
+                    table.col(name)[rows_d] = host[name]
+        if "src" in host:
+            self._apply_src(store, fam, host["src"], res, rows=rows_d)
+            res["src"] = None
+        if fam == "cnt":
+            delta = store.cnt.val[rows_d] - store.cnt.base[rows_d] - \
+                old_contrib
+            changed = np.nonzero(delta)[0]
+            if len(changed):
+                np.add.at(store.keys.cnt_sum,
+                          store.cnt.kid[rows_d[changed]], delta[changed])
+
     def _apply_src(self, store: KeySpace, fam: str, src_h: np.ndarray,
-                   res: dict) -> None:
-        """Consume a downloaded whole-plane src plane: (a) RECONSTRUCT the
+                   res: dict, rows: Optional[np.ndarray] = None) -> None:
+        """Consume a downloaded src plane: (a) RECONSTRUCT the
         winner-carried int64 columns from the host pool (bit-identical to
         the device state: column and src are written under the same win
-        predicate), and (b) assign deferred win VALUES."""
+        predicate), and (b) assign deferred win VALUES.  `rows`: the
+        table rows src_h's positions map to (a dirty-row flush downloads
+        a gathered slice); None = src_h is the whole plane."""
         rows_all = np.nonzero(src_h >= 0)[0]
         if not len(rows_all):
             return
         pool = self._val_pool
         gids_all = src_h[rows_all].astype(_I64)
+        if rows is not None:
+            # sorted unique rows map through in order, so rows_all stays
+            # strictly ascending (the contiguity fast path below holds)
+            rows_all = rows[rows_all]
         if len(pool) == 1:
             order = np.arange(len(gids_all))
             uniq = np.zeros(1, dtype=_I64)
@@ -723,6 +864,7 @@ class TorchMergeEngine:
                 raise RuntimeError(
                     f"{fam} mirror invalidated with unflushed merge data "
                     "(flush-before-touch invariant broken upstream)")
+            self.mirror_rebuilds[fam] += 1
             res = None
         cap = self._sp_size(n)
         spec = _FAMILIES[fam]
@@ -746,22 +888,25 @@ class TorchMergeEngine:
         else:
             cols = res["cols"]
             cap = res["cap"]
-        # a fresh build starts CLEAN (host == device); a reused mirror
-        # keeps its flush state
+        # a fresh build starts clean (dirty=[]: host == device); a reused
+        # or grown mirror keeps its flush state (the micro path appends
+        # touched rows between flushes, a bulk merge marks it whole)
         self._res[fam] = {"cols": cols, "n": n, "cap": cap, "ver": ver,
                           "src": res.get("src") if res else None,
                           "written": res.get("written", set()) if res
                           else set(),
                           "recon": res.get("recon") if res else None,
-                          "clean": res.get("clean", True) if res else True}
+                          "dirty": res.get("dirty") if res else []}
         return cols, cap
 
     def _family_done(self, fam: str, cols: dict, n: int, cap: int,
                      src=None, written=None, recon=None) -> None:
-        """Record post-merge device state.  `written`: the columns the
-        merges wrote since the mirror was created (None = all); flush
-        downloads only those.  `recon`: winner-carried columns that
-        reconstruct on host from the win pool instead."""
+        """Record post-merge device state of a BULK merge, which marks the
+        plane whole (dirty=None: the next flush downloads it all).
+        `written`: the columns the merges wrote since the mirror was
+        created (None = all); flush downloads only those.  `recon`:
+        winner-carried columns that reconstruct on host from the win pool
+        instead."""
         prev = self._res.get(fam) or {}
         w = prev.get("written", set())
         w |= set(cols) if written is None else written
@@ -770,7 +915,7 @@ class TorchMergeEngine:
                           "src": src if src is not None else prev.get("src"),
                           "recon": recon if recon is not None
                           else prev.get("recon"),
-                          "clean": False}
+                          "dirty": None}
         self.needs_flush = True
 
     def _drop_family(self, store: KeySpace, fam: str) -> None:
@@ -779,6 +924,271 @@ class TorchMergeEngine:
         if fam in self._res:
             self.flush(store)
             del self._res[fam]
+
+    # ------------------------------------------------ steady micro merges
+    # Op-stream micro-batches (the replication coalescer's flushes) merge
+    # IN PLACE into the resident planes.  Duplicate slots fold on the host
+    # with the shared reductions of engine/hostbatch.py, the unique
+    # winners of each LWW pair go to the card in one K3 launch, the env
+    # plane stays host-authoritative (its merge is a max into the host
+    # columns: no device bytes, and key-dt reads never need a flush), and
+    # every scattered row joins the family's dirty set so flush()
+    # downloads only those rows.
+
+    def host_stale(self, families) -> bool:
+        """True when any of `families` holds unflushed device-side merge
+        state (its host columns lag the device).  A reader of planes
+        outside that set may skip the flush; env is host-authoritative on
+        the micro path, so dt reads never cost a round trip."""
+        if not self.needs_flush:
+            return False
+        for fam in families:
+            if fam == "tns":
+                if any(p["dirty"] for p in self._tns_pools.values()):
+                    return True
+                continue
+            res = self._res.get(fam)
+            if res is not None and (res.get("written")
+                                    or res.get("src") is not None):
+                return True
+        return False
+
+    @staticmethod
+    def _micro_touched(resolved) -> set:
+        """Device families a micro round merges (env is host-side and never
+        gates the routing)."""
+        from ..utils.tables import nonnull_mask
+        fams = set()
+        for b, _ in resolved:
+            if "reg" not in fams and b.n_keys and \
+                    nonnull_mask(b.reg_val).any():
+                fams.add("reg")
+            if len(b.cnt_ki):
+                fams.add("cnt")
+            if len(b.el_ki):
+                fams.add("el")
+            if len(b.tns_ki):
+                fams.add("tns")
+        return fams
+
+    def _micro_placement(self, store: KeySpace, resolved):
+        """Per-family steady routing: {fam: True = in place on the device,
+        False = host twin} over the device families this round touches,
+        or None when the steady path is off (the whole-round host
+        fallback).  Families route independently: a warm plane (a fresh
+        resident mirror, or a host version stable for more than `warmup`
+        micro rounds) rides the device while a cold one merges on its host
+        twin."""
+        if not (self.steady and self.resident):
+            return None
+        placement = {}
+        for fam in self._micro_touched(resolved):
+            ver = store.fam_ver[fam]
+            if fam == "tns":
+                # the tensor plane's mirror is its payload pool set
+                if self._tns_pools and self._tns_ver == ver:
+                    placement[fam] = True
+                    continue
+                res = None
+            else:
+                res = self._res.get(fam)
+            if res is not None and res.get("ver") == ver:
+                placement[fam] = True
+                continue
+            last_ver, streak = self._warm_streak.get(fam, (-1, 0))
+            streak = streak + 1 if last_ver == ver else 1
+            self._warm_streak[fam] = (ver, streak)
+            placement[fam] = streak > self.warmup
+        return placement
+
+    def _merge_micro_resident(self, store: KeySpace, b: ColumnarBatch,
+                              kid_of: np.ndarray, st: MergeStats,
+                              placement: dict) -> None:
+        """Merge ONE op-stream micro-batch under the steady placement: warm
+        families scatter in place into the resident planes (the device
+        twin of hostbatch.merge_host_batch, fold for fold: both sides use
+        the same fold_* reductions, so the scattered winners ARE the host
+        path's winners), cold families take their host twins."""
+        from ..utils.tables import nonnull_mask
+        from .hostbatch import (_apply_cnt_pair, _merge_el, _merge_env,
+                                _merge_reg, _resolve_el_rows,
+                                fold_pair_rows)
+        if "env" in self._res:
+            # a forced-fold catch-up can leave a device env mirror; the
+            # micro path keeps env host-authoritative, so sync it down once
+            self._drop_family(store, "env")
+        valid = kid_of >= 0
+        all_valid = bool(valid.all())
+        if b.n_keys:
+            kids = kid_of if all_valid else kid_of[valid]
+            if len(kids):
+                mat = np.stack([b.key_ct, b.key_mt, b.key_dt,
+                                b.key_expire], axis=-1)
+                _merge_env(store, kids, mat if all_valid else mat[valid])
+            em = valid & (b.key_enc == S.ENC_BYTES) & \
+                nonnull_mask(b.reg_val)
+            idx = np.nonzero(em)[0]
+            if len(idx):
+                if placement.get("reg"):
+                    wk, wt, wn, srci = fold_pair_rows(
+                        kid_of[idx], b.reg_t[idx], b.reg_node[idx])
+                    vals = list(map(b.reg_val.__getitem__,
+                                    idx[srci].tolist()))
+                    self._micro_scatter_pair(store, "reg",
+                                             ("rv_t", "rv_node"),
+                                             wk, wt, wn, vals)
+                else:
+                    _merge_reg(store, kid_of[idx], b.reg_t[idx],
+                               b.reg_node[idx],
+                               list(map(b.reg_val.__getitem__,
+                                        idx.tolist())))
+
+        if len(b.cnt_ki):
+            kid_arr = kid_of[b.cnt_ki]
+            keep = np.nonzero(kid_arr >= 0)[0]
+            if len(keep):
+                st.counter_rows += len(keep)
+                sel = slice(None) if len(keep) == len(kid_arr) else keep
+                rows = self._resolve_cnt_rows(store, kid_arr[sel],
+                                              b.cnt_node[sel])
+                bt = b.cnt_base_t[sel]
+                base_neutral = bool((bt == K.NEUTRAL_T).all())
+                if placement.get("cnt"):
+                    # (uuid, val) pair: the winners reconstruct from the
+                    # pool at flush, so the two columns never download
+                    wr, wu, wv, _ = fold_pair_rows(rows, b.cnt_uuid[sel],
+                                                   b.cnt_val[sel])
+                    self._micro_scatter_pair(store, "cnt", ("uuid", "val"),
+                                             wr, wu, wv, None)
+                    if not base_neutral:
+                        # base pair (counter deletes, rare): no src
+                        # tracking, its dirty rows download at flush
+                        wr2, wbt, wb, _ = fold_pair_rows(rows, bt,
+                                                         b.cnt_base[sel])
+                        self._micro_scatter_pair(store, "cnt",
+                                                 ("base_t", "base"),
+                                                 wr2, wbt, wb, None,
+                                                 src=False)
+                else:
+                    _apply_cnt_pair(store, rows, b.cnt_val[sel],
+                                    b.cnt_uuid[sel], "val", "uuid", 1)
+                    if not base_neutral:
+                        _apply_cnt_pair(store, rows, b.cnt_base[sel], bt,
+                                        "base", "base_t", -1)
+
+        if len(b.el_ki):
+            kid_arr = kid_of[b.el_ki]
+            keep = np.nonzero(kid_arr >= 0)[0]
+            if len(keep):
+                st.elem_rows += len(keep)
+                if len(keep) == len(kid_arr):
+                    sel = slice(None)
+                    members = b.el_member
+                    vals = b.el_val
+                else:
+                    sel = keep
+                    members = list(map(b.el_member.__getitem__,
+                                       keep.tolist()))
+                    vals = list(map(b.el_val.__getitem__, keep.tolist()))
+                rows = _resolve_el_rows(store, kid_arr[sel], members)
+                if not placement.get("el"):
+                    _merge_el(store, rows, b.el_add_t[sel],
+                              b.el_add_node[sel], b.el_del_t[sel], vals)
+                else:
+                    self._micro_elems(store, b, sel, rows, vals)
+
+        if len(b.tns_ki):
+            self._merge_micro_tns(store, b, kid_of, st,
+                                  device=bool(placement.get("tns")))
+
+        for i, key in enumerate(b.del_keys):
+            store.record_key_delete(key, int(b.del_t[i]))
+
+    def _micro_elems(self, store: KeySpace, b: ColumnarBatch, sel,
+                     rows: np.ndarray, vals) -> None:
+        """Element rows of one micro-batch on the device: the add pair
+        scatters through K3; the del side is a plain max applied to the
+        HOST column with the device del_t plane advanced in lockstep.  A
+        host-only write would leave the mirror's del_t stale, and a later
+        forced-fold bulk round (which reads and downloads del_t) would
+        regress the host column and resurrect deleted elements.
+        Newly-dead rows queue for GC at flush, after add_t
+        reconstruction."""
+        from .hostbatch import fold_el_rows
+        wr, wat, wan, d_red, srci = fold_el_rows(
+            rows, b.el_add_t[sel], b.el_add_node[sel], b.el_del_t[sel])
+        if b.el_has_vals is False or not has_values(vals):
+            wvals = None  # winning valueless adds still CLEAR the value
+        else:
+            wvals = list(map(vals.__getitem__, srci.tolist()))
+        self._micro_scatter_pair(store, "el", ("add_t", "add_node"),
+                                 wr, wat, wan, wvals)
+        nz = np.flatnonzero(d_red)
+        if not len(nz):
+            return
+        sel_r = wr[nz]
+        dv = d_red[nz]
+        adv = dv > store.el.del_t[sel_r]
+        if not adv.any():
+            return
+        rows_adv = sel_r[adv]
+        dv_adv = dv[adv]
+        store.el.del_t[rows_adv] = dv_adv
+        self._el_del_touched.append(rows_adv)
+        res = self._res["el"]
+        res["cols"]["del_t"] = B.bulk_max1(
+            res["cols"]["del_t"], self._h2d(rows_adv.astype(_I32)),
+            self._h2d(dv_adv))
+
+    def _micro_scatter_pair(self, store: KeySpace, fam: str, pair, wr,
+                            wp, ws, vals, src: bool = True) -> None:
+        """Scatter one folded LWW pair in place into `fam`'s resident
+        planes.  `pair` = (primary, secondary) column names; the win rule
+        is lexicographic (primary, secondary) > current, exactly
+        hostbatch's fold rule and ops/bulk._pair_win.  With `src` (the
+        default) the launch is K3 and the winners' pool ids land in the
+        resident src plane: flush downloads the int32 src rows and
+        reconstructs both columns and the win values from the host pool.
+        src=False (the rare counter base pair) stays on the plain
+        bulk_lww, keeps its winner on the device and downloads its dirty
+        rows at flush."""
+        nw = len(wr)
+        if not nw:
+            return
+        cols, sp = self._resident_state(store, fam, _fam_rows(store, fam))
+        pcol, scol = pair
+        idx = self._h2d(wr.astype(_I32))
+        bp = self._h2d(np.asarray(wp, dtype=_I64))
+        bs = self._h2d(np.asarray(ws, dtype=_I64))
+        if src:
+            src_d = self._src_state(fam, sp)
+            pb = self._pool_add(vals, **{pcol: wp, scol: ws})
+            p2, s2, src2 = KN.scatter_pair_src(cols[pcol], cols[scol], src_d,
+                                               idx, bp, bs, int(pb))
+            self._micro_done(fam, {pcol: p2, scol: s2}, src2,
+                             {pcol: pcol, scol: scol}, {pcol, scol}, wr)
+        else:
+            p2, s2, _win = B.bulk_lww(cols[pcol], cols[scol], idx, bp, bs)
+            self._micro_done(fam, {pcol: p2, scol: s2}, None, None,
+                             {pcol, scol}, wr)
+
+    def _micro_done(self, fam: str, cols: dict, src, recon, written: set,
+                    rows: np.ndarray) -> None:
+        """Fold a micro scatter's results into the family record: the
+        updated columns, src/recon tracking, the written columns, and the
+        touched rows appended to the dirty set (a bulk-merged plane,
+        dirty None, stays whole)."""
+        res = self._res[fam]
+        res["cols"].update(cols)
+        if src is not None:
+            res["src"] = src
+        if recon is not None:
+            res["recon"] = dict(recon) if res.get("recon") is None \
+                else {**res["recon"], **recon}
+        res["written"] |= written
+        if res.get("dirty") is not None:
+            res["dirty"].append(np.asarray(rows))
+        self.needs_flush = True
 
     def _recompute_sums(self, store: KeySpace) -> None:
         """Counter-sum re-derivation after a whole-plane cnt flush.  With
@@ -799,6 +1209,417 @@ class TorchMergeEngine:
         contrib = cols["val"][:n] - cols["base"][:n]
         sums = KN.segment_sum(ids, contrib, nk)
         store.keys.cnt_sum[:nk] = self._get(sums)
+
+    # ---------------------------------------------------- tensor registers
+    # The tensor-valued register family (crdt/tensor.py): contributor slot
+    # STAMPS (uuid/cnt columns) stay host-authoritative (tiny LWW
+    # compares), while the payload arrays live in resident device pools
+    # keyed by (dtype, elems).  A micro round folds each batch's duplicate
+    # slots on the host, wins against the host uuid column and scatters
+    # ONLY the winning payloads into the pool; flush gathers and
+    # downloads exactly the dirty pool slots.  Batched reads
+    # (`tensor_read_many`) reduce the contributor stacks on the card with
+    # K5, bit-identical to the host reference (KeySpace.tensor_read).
+
+    def _tns_check(self, store: KeySpace) -> None:
+        """Tensor-pool staleness: an op-path tensor write bumped the plane
+        version, so every clean payload mirror may be stale: drop the
+        pools (they refill lazily).  Dirty slots at a version bump mean
+        the flush-before-touch invariant broke upstream."""
+        ver = store.fam_ver["tns"]
+        if self._tns_ver != ver:
+            if any(p["dirty"] for p in self._tns_pools.values()):
+                raise RuntimeError(
+                    "tns pools invalidated with unflushed payloads "
+                    "(flush-before-touch invariant broken upstream)")
+            self._drop_tns_pools()
+            self._tns_ver = ver
+
+    def _drop_tns_pools(self) -> None:
+        self._tns_pools.clear()
+        self._tns_bytes = 0
+        self._tns_epoch += 1
+
+    def _tns_pool(self, meta) -> dict:
+        """The pool of one (dtype, elems) class: a [cap, elems] device
+        buffer, its slot -> store row map and its dirty slots."""
+        key = (meta.dtype_code, meta.elems)
+        pool = self._tns_pools.get(key)
+        if pool is None:
+            pool = {"buf": None, "rows": np.full(0, -1, dtype=_I64),
+                    "map": {}, "n": 0, "cap": 0, "dirty": set(),
+                    "elems": meta.elems, "dtype": meta.dtype}
+            self._tns_pools[key] = pool
+        return pool
+
+    def _tns_slots(self, pool: dict, rows_store) -> np.ndarray:
+        """Pool slots for store rows, allocating (and growing the device
+        buffer with zero rows) for rows not yet resident."""
+        m = pool["map"]
+        need = sum(1 for r in rows_store if r not in m)
+        if pool["n"] + need > pool["cap"]:
+            cap = K.next_pow2(max(pool["n"] + need, 64))
+            grown = np.full(cap, -1, dtype=_I64)
+            grown[: len(pool["rows"])] = pool["rows"]
+            pool["rows"] = grown
+            dt = torch.from_numpy(np.zeros(0, pool["dtype"])).dtype
+            zeros = torch.zeros((cap - pool["cap"], pool["elems"]),
+                                dtype=dt, device=self.device)
+            pool["buf"] = zeros if pool["buf"] is None else \
+                torch.cat([pool["buf"], zeros])
+            self._tns_bytes += \
+                (cap - pool["cap"]) * pool["elems"] * pool["dtype"].itemsize
+            pool["cap"] = cap
+        out = np.empty(len(rows_store), dtype=_I64)
+        for j, r in enumerate(rows_store):
+            slot = m.get(r)
+            if slot is None:
+                slot = pool["n"]
+                pool["n"] = slot + 1
+                m[r] = slot
+                pool["rows"][slot] = r
+            out[j] = slot
+        return out
+
+    def _tns_scatter(self, pool: dict, slots: np.ndarray, mats: list,
+                     dirty: bool) -> None:
+        """Write payload rows into a pool in one upload and one scatter.
+        `mats` are size-validated payloads (wire bytes or flat arrays of
+        the pool dtype); `dirty` marks the slots device-newer than the
+        host list (merge winners); uploads that mirror host payloads
+        (read staging) stay clean."""
+        w = len(slots)
+        elems = pool["elems"]
+        dt = pool["dtype"]
+        # (wire payloads are little-endian; the zero-copy join needs the
+        # native order to match)
+        if w and np.little_endian and all(type(m) is bytes for m in mats):
+            stack = np.frombuffer(b"".join(mats), dtype=dt).reshape(w, elems)
+        else:
+            stack = np.zeros((w, elems), dtype=dt)
+            for j, m in enumerate(mats):
+                arr = m if isinstance(m, np.ndarray) \
+                    else np.frombuffer(m, dtype=dt.newbyteorder("<"))
+                stack[j] = arr
+        D.pool_scatter(pool["buf"], self._h2d(slots.astype(_I32)),
+                       self._h2d(stack))
+        if dirty:
+            pool["dirty"].update(slots.tolist())
+
+    def _merge_micro_tns(self, store: KeySpace, b: ColumnarBatch,
+                         kid_of: np.ndarray, st: MergeStats,
+                         device: bool) -> None:
+        """Merge one batch's tensor rows.  `device=False` is the host
+        reference (hostbatch.merge_host_tns, the per-row loop);
+        `device=True` makes the same decisions in batch: fold duplicate
+        slots, win against the host uuid column, scatter the winning
+        payloads into the resident pools."""
+        from ..crdt import tensor as T
+        from .hostbatch import merge_host_tns
+        if not device:
+            n0 = st.tensor_rows
+            merge_host_tns(store, b, kid_of, st)
+            self.tns_host_rows += st.tensor_rows - n0
+            return
+        self._tns_check(store)
+        kid_arr = kid_of[b.tns_ki]
+        keep = np.nonzero(kid_arr >= 0)[0]
+        if not len(keep):
+            return
+        st.tensor_rows += len(keep)
+        self.tns_dev_rows += len(keep)
+        # the count gate first, in the host reference's check order:
+        # tensor_merge_row runs check_count BEFORE installing a fresh key's
+        # config, so a key whose every row is count-invalid stays without
+        # tns_meta on both paths
+        cnt_ok = b.tns_cnt[keep] >= 1
+        if not cnt_ok.all():
+            log.error("skipping %d tensor rows: contribution count < 1",
+                      int((~cnt_ok).sum()))
+            keep = keep[cnt_ok]
+            if not len(keep):
+                return
+        # per-key config install/validate and per-row payload checks: the
+        # skip rules of KeySpace.tensor_merge_row, decided once per
+        # distinct key when the whole batch shares one config
+        idx_list = keep.tolist()
+        metas: dict = {}
+        ok = np.ones(len(keep), dtype=bool)
+        cfg0 = b.tns_cfg[idx_list[0]]
+        uniform = all(b.tns_cfg[i] is cfg0 or b.tns_cfg[i] == cfg0
+                      for i in idx_list[1:])
+        if uniform:
+            bad_kids = False
+            for kid in np.unique(kid_arr[keep]).tolist():
+                meta = store.tns_meta.get(kid)
+                try:
+                    if meta is None:
+                        meta = T.unpack_config(cfg0)
+                        store.tns_meta[kid] = meta
+                    elif T.pack_config(meta) != bytes(cfg0):
+                        raise T.TensorConfigError("tensor config mismatch")
+                    metas[kid] = meta
+                except T.TensorConfigError as e:
+                    log.error("skipping tensor rows for kid %d: %s", kid, e)
+                    metas[kid] = False
+                    bad_kids = True
+            if bad_kids:
+                ok &= np.fromiter(
+                    (metas[int(k)] is not False for k in kid_arr[keep]),
+                    dtype=bool, count=len(keep))
+            meta_u = next((m for m in metas.values() if m is not False),
+                          None)
+            if meta_u is not None:
+                bad_sz = np.fromiter(
+                    (not T.payload_ok(meta_u, b.tns_payload[i])
+                     for i in idx_list), dtype=bool, count=len(keep))
+                if bad_sz.any():
+                    log.error("skipping %d tensor rows: bad payload "
+                              "(size/dtype)", int(bad_sz.sum()))
+                    ok &= ~bad_sz
+        else:
+            for j, i in enumerate(idx_list):
+                kid = int(kid_arr[i])
+                meta = metas.get(kid)
+                cfg = b.tns_cfg[i]
+                if meta is None:
+                    meta = store.tns_meta.get(kid)
+                    try:
+                        if meta is None:
+                            meta = T.unpack_config(cfg)
+                            store.tns_meta[kid] = meta
+                        elif T.pack_config(meta) != bytes(cfg):
+                            raise T.TensorConfigError(
+                                "tensor config mismatch")
+                    except T.TensorConfigError as e:
+                        log.error("skipping tensor rows for kid %d: %s",
+                                  kid, e)
+                        metas[kid] = False
+                        ok[j] = False
+                        continue
+                    metas[kid] = meta
+                elif meta is False:
+                    ok[j] = False
+                    continue
+                elif T.pack_config(meta) != bytes(cfg):
+                    log.error("skipping tensor row for kid %d: config "
+                              "mismatch", kid)
+                    ok[j] = False
+                    continue
+                if not T.payload_ok(meta, b.tns_payload[i]):
+                    log.error("skipping tensor row for kid %d: bad payload "
+                              "(size/dtype)", kid)
+                    ok[j] = False
+                    continue
+                store.tensor_count_merge(meta)
+        keep = keep[ok]
+        if not len(keep):
+            return
+        if uniform:
+            # one gauge bump per validated delivered row, as the host
+            # reference counts in tensor_merge_row
+            meta0 = next((m for m in metas.values() if m is not False),
+                         None)
+            if meta0 is not None:
+                store.tensor_count_merge(meta0, len(keep))
+        kids = kid_arr[keep]
+        uuids = b.tns_uuid[keep]
+        cnts = b.tns_cnt[keep]
+        # resolve (kid, node) -> slot rows (creates neutral rows), then
+        # fold intra-batch duplicates: LWW on uuid, the FIRST occurrence
+        # on exact ties (the host loop's strict > keeps the first too)
+        rows = self._resolve_tns_rows(store, kids, b.tns_node[keep])
+        order = np.lexsort((-np.arange(len(rows)), uuids, rows))
+        r_s = rows[order]
+        last = np.nonzero(np.append(r_s[1:] != r_s[:-1], True))[0]
+        src = order[last]
+        wr = r_s[last]
+        wu = uuids[src]
+        win = wu > store.tns.uuid[wr]
+        if not win.any():
+            return
+        w_rows = wr[win]
+        w_src = src[win]
+        store.tns.uuid[w_rows] = wu[win]
+        store.tns.cnt[w_rows] = cnts[w_src]
+        # winners grouped per pool class, one scatter each; the host
+        # payload entries stay stale until flush (the stamps above are
+        # what later merge decisions read)
+        classes: dict = {}
+        for r, s_i in zip(w_rows.tolist(), w_src.tolist()):
+            meta = metas[int(kids[s_i])]
+            ent = classes.setdefault((meta.dtype_code, meta.elems),
+                                     (meta, [], []))
+            ent[1].append(r)
+            ent[2].append(b.tns_payload[int(keep[s_i])])
+        for meta, rws, mats in classes.values():
+            pool = self._tns_pool(meta)
+            self._tns_scatter(pool, self._tns_slots(pool, rws), mats,
+                              dirty=True)
+        self.needs_flush = True
+        if self._tns_bytes > self.tns_pool_cap:
+            # residency cap: sync the dirty payloads down and release the
+            # pools (they refill lazily)
+            log.info("tensor pools over CONSTDB_TORCH_TENSOR_POOL_MB; "
+                     "flushing and dropping %d pools (%d bytes)",
+                     len(self._tns_pools), self._tns_bytes)
+            self._flush_tns(store)
+            self._drop_tns_pools()
+
+    def _resolve_tns_rows(self, store: KeySpace, kids: np.ndarray,
+                          nodes: np.ndarray) -> np.ndarray:
+        """(kid, node) -> store tensor slot rows, creating neutral slots
+        for misses (the batched twin of KeySpace.tensor_slot_row)."""
+        ranks = np.fromiter((store.rank_of(int(x)) for x in nodes),
+                            dtype=_I64, count=len(nodes))
+        combos = (kids << KeySpace.NODE_RANK_BITS) | ranks
+        rn0 = store.tns.n
+        rows, n_new = store.tns_index.get_or_assign_batch(combos,
+                                                          next_val=rn0)
+        if n_new:
+            created = np.nonzero(rows >= rn0)[0]
+            uniq_rows, first = np.unique(rows[created], return_index=True)
+            pos = created[first]
+            if len(uniq_rows) != n_new or int(uniq_rows[0]) != rn0 or \
+                    int(uniq_rows[-1]) != rn0 + n_new - 1:
+                span = f"[{int(uniq_rows[0])}, {int(uniq_rows[-1])}]" \
+                    if len(uniq_rows) else "[]"
+                raise RuntimeError(
+                    f"tns combo index issued non-contiguous rows {span} "
+                    f"(n={len(uniq_rows)}) for block "
+                    f"[{rn0}, {rn0 + n_new - 1}]")
+            store.tns.append_block(n_new, kid=kids[pos], node=nodes[pos],
+                                   uuid=K.NEUTRAL_T, cnt=0)
+            store.tns_payload.extend([None] * n_new)
+        return rows
+
+    def _flush_tns(self, store: KeySpace) -> None:
+        """Download the dirty pool slots into the host payload list: the
+        tensor half of the dirty-row flush."""
+        for pool in self._tns_pools.values():
+            dirty = pool["dirty"]
+            if not dirty:
+                continue
+            slots = np.fromiter(dirty, dtype=_I64, count=len(dirty))
+            slots.sort()
+            self.flush_rows_full_equiv += pool["n"]
+            self.flush_rows_downloaded += len(slots)
+            got = self._get(B.gather_rows(pool["buf"],
+                                          self._h2d(slots.astype(_I32))))
+            rows = pool["rows"]
+            for j, slot in enumerate(slots.tolist()):
+                store.tensor_assign_payload(int(rows[slot]), got[j].copy())
+            pool["dirty"] = set()
+
+    def tensor_read_many(self, store: KeySpace, kids) -> dict:
+        """Batched tensor reads: {kid: flat payload array, or None when no
+        contribution landed}.  With the steady path on, contributor stacks
+        reduce ON THE CARD (K5; lww picks its winner from the host stamps)
+        and only the [G, elems] results download; dirty payloads never
+        round-trip through the host.  Otherwise the host reference
+        (KeySpace.tensor_read).
+
+        The grouping and upload pass (contributor enumeration, pool-slot
+        resolution, staging of rows not yet pooled, the device idx vector)
+        is cached between calls: membership and canonical order change
+        only when slot rows are created, pool slots only when the pools
+        drop, and the cache stamp covers both."""
+        from ..crdt import tensor as T
+        if not (self.resident and self.steady):
+            return {kid: store.tensor_read(kid) for kid in kids}
+        self._tns_check(store)
+        kids_t = tuple(kids)
+        stamp = (self._tns_epoch, self._tns_ver, store.tns.n)
+        rc = self._tns_read_cache
+        if rc.get("stamp") != stamp:
+            rc = self._tns_read_cache = {"stamp": stamp, "by_kids": {}}
+        cache = rc["by_kids"].get(kids_t)
+        if cache is None:
+            if len(rc["by_kids"]) >= 8192:  # bound a huge-keyspace scan
+                rc["by_kids"].clear()
+            cache = self._tns_read_build(store, kids_t)
+            rc["by_kids"][kids_t] = cache
+        out = dict(cache["empty"])
+        for grp in cache["groups"]:
+            (strat, n, g, members, pool, idx_dev, iota_dev, flat_rows,
+             rows_mat, nodes_mat, slots_mat) = grp
+            buf = pool["buf"]
+            if strat == T.STRAT_LWW:
+                # winner from the host-authoritative stamps: max uuid per
+                # key, the writer node breaking exact ties; the payload
+                # comes from the pool (the dirty row's truth)
+                u = store.tns.uuid[rows_mat]
+                cand = u == u.max(axis=1, keepdims=True)
+                w = np.where(cand, nodes_mat,
+                             np.int64(-1) << 62).argmax(axis=1)
+                idx = slots_mat[np.arange(g), w].astype(_I32)
+                got = self._get(B.gather_rows(buf, self._h2d(idx)))
+            else:
+                # trimmed-mean divisor as a runtime value of the payload
+                # dtype
+                div = pool["dtype"].type(n if n <= 2 else n - 2)
+                if strat == T.STRAT_AVG:
+                    # scale (the products round at this boundary), K5 sum
+                    # over the rounded products, divide by the count
+                    # totals, which accumulate on the host with the
+                    # canonical sequential dtype chain
+                    cnts_f = store.tns.cnt[flat_rows].reshape(g, n).astype(
+                        pool["dtype"])
+                    tot = cnts_f[:, 0].copy()
+                    for i in range(1, n):
+                        tot = tot + cnts_f[:, i]
+                    wmat = D.tensor_take_scale(buf, idx_dev,
+                                               self._h2d(cnts_f), n=n, g=g)
+                    acc = KN.tensor_take_reduce(
+                        wmat.reshape(g * n, -1), iota_dev, div,
+                        strat=T.STRAT_SUM, n=n, g=g)
+                    red = D.tensor_div(acc, self._h2d(tot.reshape(g, 1)))
+                else:
+                    red = KN.tensor_take_reduce(buf, idx_dev, div,
+                                                strat=strat, n=n, g=g)
+                got = self._get(red)
+            for j, kid in enumerate(members):
+                out[kid] = got[j]
+        return out
+
+    def _tns_read_build(self, store: KeySpace, kids_t: tuple) -> dict:
+        """Build the cached read-group structure for one key set:
+        contributor rows in canonical order per key, grouped by (dtype,
+        elems, strategy, n); rows not yet pooled upload as clean mirrors;
+        the flat pool-slot idx vector goes to the device once."""
+        from ..crdt import tensor as T
+        raw: dict = {}
+        empty: dict = {}
+        for kid in kids_t:
+            meta = store.tns_meta.get(kid)
+            rows = store.tensor_contrib_rows(kid)
+            if meta is None or not rows:
+                empty[kid] = None
+                continue
+            raw.setdefault((meta.dtype_code, meta.elems, meta.strat,
+                            len(rows)), []).append((kid, meta, rows))
+        groups = []
+        for (_dcode, _elems, strat, n), mem in raw.items():
+            pool = self._tns_pool(mem[0][1])
+            flat = np.fromiter((r for _k, _m, rows in mem for r in rows),
+                               dtype=_I64, count=len(mem) * n)
+            missing = [r for r in dict.fromkeys(flat.tolist())
+                       if r not in pool["map"]]
+            if missing:
+                mats = [store.tns_payload[r] for r in missing]
+                self._tns_scatter(pool, self._tns_slots(pool, missing), mats,
+                                  dirty=False)
+            g = len(mem)
+            m = pool["map"]
+            slots_mat = np.fromiter((m[r] for r in flat.tolist()),
+                                    dtype=_I64, count=g * n).reshape(g, n)
+            iota_dev = self._h2d(np.arange(g * n, dtype=_I32)) \
+                if strat == T.STRAT_AVG else None
+            groups.append((strat, n, g, [kid for kid, _m2, _r in mem], pool,
+                           self._h2d(slots_mat.reshape(-1).astype(_I32)),
+                           iota_dev, flat, flat.reshape(g, n),
+                           store.tns.node[flat.reshape(g, n)], slots_mat))
+        return {"empty": empty, "groups": groups}
 
     def _resolve_keys(self, store: KeySpace, batch: ColumnarBatch,
                       st: MergeStats) -> np.ndarray:

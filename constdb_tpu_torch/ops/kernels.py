@@ -1,11 +1,16 @@
 """Hand-written Hopper kernels: build, load and launch.
 
-Three CUDA C++ kernels replace the reference package's Pallas kernels on
-the snapshot catch-up path (constdb_tpu/ops/pallas_dense.py):
+Five CUDA C++ kernels replace the reference package's Pallas kernels
+(constdb_tpu/ops/pallas_dense.py), on the snapshot catch-up path (K1, K2,
+K4) and on the steady state (K3, K5):
 
   * K1 `merge_elems`    (csrc/merge_fold.cu)  <- pallas_dense.merge_elems
   * K2 `merge_counters` (csrc/merge_fold.cu)  <- pallas_dense.merge_counters
+  * K3 `scatter_pair_src` (csrc/scatter_pair.cu)
+                        <- pallas_dense.scatter_pair_src_split
   * K4 `segment_sum`    (csrc/segment_sum.cu) <- pallas_dense.segment_sum
+  * K5 `tensor_take_reduce` (csrc/tensor_reduce.cu)
+                        <- pallas_dense.tensor_reduce
 
 Build: each source compiles with `nvcc -shared` for sm_90a into its own
 shared library with a plain C interface, at first use, under
@@ -14,8 +19,9 @@ compile in parallel (one nvcc each).  The libraries load with ctypes and
 launch on PyTorch's current stream with raw device pointers.  A failed
 build or a failed launch raises: nothing falls back.
 
-Each wrapper takes its plain PyTorch version (ops/dense.py) only when the
-tensors it was given lie on the CPU.  On CUDA tensors it launches the
+Each wrapper takes its plain PyTorch version (ops/dense.py, and
+ops/bulk.py `bulk_lww_src` for K3) only when the tensors it was given lie
+on the CPU.  On CUDA tensors it launches the
 kernel, counts the launch in `LAUNCHES`, or raises.
 """
 
@@ -32,20 +38,25 @@ from pathlib import Path
 
 import torch
 
+from . import bulk as B
 from . import dense as D
 
 __all__ = ["LAUNCHES", "SOURCES", "build", "merge_elems", "merge_lww",
-           "merge_counters", "segment_sum", "reset_launches"]
+           "merge_counters", "scatter_pair_src", "segment_sum",
+           "tensor_take_reduce", "reset_launches"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 # library name -> source file; one nvcc per source
-SOURCES = {"merge_fold": "merge_fold.cu", "segment_sum": "segment_sum.cu"}
+SOURCES = {"merge_fold": "merge_fold.cu", "segment_sum": "segment_sum.cu",
+           "scatter_pair": "scatter_pair.cu",
+           "tensor_reduce": "tensor_reduce.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"merge_elems": 0, "merge_counters": 0, "segment_sum": 0}
+LAUNCHES = {"merge_elems": 0, "merge_counters": 0, "scatter_pair_src": 0,
+            "segment_sum": 0, "tensor_take_reduce": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -58,6 +69,11 @@ _SIGNATURES = {
     "constdb_merge_counters": [_P, _P, ctypes.c_int, ctypes.c_int64,
                                _P, _P, _P],
     "constdb_segment_sum": [_P, _P, ctypes.c_int64, ctypes.c_int64, _P, _P],
+    "constdb_scatter_pair_src": [_P, _P, _P, ctypes.c_int64, _P, _P, _P,
+                                 ctypes.c_int64, ctypes.c_int32, _P],
+    "constdb_tensor_take_reduce": [_P, _P, ctypes.c_int64, ctypes.c_int,
+                                   ctypes.c_int64, ctypes.c_double,
+                                   ctypes.c_int, ctypes.c_int, _P, _P],
 }
 
 
@@ -234,4 +250,71 @@ def segment_sum(ids: torch.Tensor, vals: torch.Tensor,
                                      n_seg, out.data_ptr(), _stream(vals))
         _check_rc(lib, "segment_sum", rc)
         LAUNCHES["segment_sum"] += 1
+    return out
+
+
+def scatter_pair_src(p: torch.Tensor, s: torch.Tensor, src: torch.Tensor,
+                     idx: torch.Tensor, bp: torch.Tensor, bs: torch.Tensor,
+                     base: int):
+    """K3: in-place gather-compare-scatter of one LWW pair against
+    resident planes.  p, s [Sp] int64 (primary, secondary), src [Sp]
+    int32, idx [n] int32 UNIQUE rows, bp, bs [n] int64; where
+    (bp[i], bs[i]) > (p[idx[i]], s[idx[i]]) lexicographically the pair is
+    written and src[idx[i]] = base + i.  The planes are updated IN PLACE
+    and returned as (p, s, src)."""
+    if _on_cpu(p, s, src, idx, bp, bs):
+        return B.bulk_lww_src(p, s, src, idx, bp, bs, base)
+    _check("scatter_pair_src", p, s, bp, bs)
+    _check("scatter_pair_src", src, idx, dtype=torch.int32)
+    sp = int(p.shape[0])
+    n = int(idx.shape[0])
+    if p.dim() != 1 or s.shape != p.shape or src.shape != p.shape:
+        raise ValueError("scatter_pair_src: planes must be equal-length 1-D")
+    if idx.dim() != 1 or bp.shape != idx.shape or bs.shape != idx.shape:
+        raise ValueError("scatter_pair_src: batch columns must be n-long 1-D")
+    base = int(base)
+    if base < 0 or base + n > (1 << 31):
+        raise ValueError("scatter_pair_src: base + n must fit int32")
+    if n:
+        lib = _lib("scatter_pair")
+        rc = lib.constdb_scatter_pair_src(
+            p.data_ptr(), s.data_ptr(), src.data_ptr(), sp, idx.data_ptr(),
+            bp.data_ptr(), bs.data_ptr(), n, base, _stream(p))
+        _check_rc(lib, "scatter_pair_src", rc)
+        LAUNCHES["scatter_pair_src"] += 1
+    return p, s, src
+
+
+def tensor_take_reduce(buf: torch.Tensor, idx: torch.Tensor, div, *,
+                       strat: int, n: int, g: int) -> torch.Tensor:
+    """K5: pool gather + canonical strategy reduction -> [g, Kp].  `buf`
+    [C, Kp] f32 or f64 pool, `idx` [g * n] int32 pool rows in canonical
+    contributor order, `div` the trimmed-mean divisor; sum, maxmag and
+    trimmed-mean (avg composes outside, see ops/dense.py)."""
+    from ..crdt.tensor import STRAT_MAXMAG, STRAT_SUM, STRAT_TRIMMED
+    if _on_cpu(buf, idx):
+        return D.tensor_take_reduce(buf, idx, div, strat=strat, n=n, g=g)
+    if buf.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"tensor_take_reduce: expected f32/f64, "
+                        f"got {buf.dtype}")
+    _check("tensor_take_reduce", buf, dtype=buf.dtype)
+    _check("tensor_take_reduce", idx, dtype=torch.int32)
+    if strat not in (STRAT_SUM, STRAT_MAXMAG, STRAT_TRIMMED):
+        raise ValueError(f"tensor_take_reduce: strategy {strat} does not "
+                         "reduce in the kernel")
+    if buf.dim() != 2 or idx.dim() != 1 or idx.shape[0] != g * n or \
+            n < 1 or g < 0:
+        raise ValueError("tensor_take_reduce: expected buf [C, Kp] and "
+                         f"idx [g * n] with n >= 1; got "
+                         f"{tuple(buf.shape)}, {tuple(idx.shape)}, n={n}, "
+                         f"g={g}")
+    kp = int(buf.shape[1])
+    out = torch.empty((g, kp), dtype=buf.dtype, device=buf.device)
+    if g and kp:
+        lib = _lib("tensor_reduce")
+        rc = lib.constdb_tensor_take_reduce(
+            buf.data_ptr(), idx.data_ptr(), g, n, kp, float(div), int(strat),
+            int(buf.dtype == torch.float64), out.data_ptr(), _stream(buf))
+        _check_rc(lib, "tensor_take_reduce", rc)
+        LAUNCHES["tensor_take_reduce"] += 1
     return out

@@ -1,10 +1,15 @@
-"""Snapshot catch-up workload: generator, chunker and oracle.
+"""Workloads of the port: generators, chunker and oracles.
 
-The port's own copy of the reference bench's workload helpers
-(bench.py make_workload, chunk_batches, subsample_keys,
+The snapshot catch-up is the port's own copy of the reference bench's
+workload helpers (bench.py make_workload, chunk_batches, subsample_keys,
 subsample_workload, oracle_canonical): R replica snapshots of one mixed
 N-key keyspace, 40% PN-counters, 30% LWW registers, 30% sets of
 `members_per_set` members, made from a seed with numpy.
+
+The steady state has two more generators (see their docstrings):
+`make_stream_workload`, a peer's replication stream as the coalescer
+lands it, and `make_tensor_workload`, tensor-register contributions;
+`replay_oracle` replays either through the CPU engine.
 
 One shape is added: `aligned_counters=True` gives every replica's dump
 the counter slots of all R writer nodes, the way a converged cluster's
@@ -21,6 +26,7 @@ import sys
 import numpy as np
 
 from .crdt import semantics as S
+from .crdt import tensor as T
 from .engine.base import ColumnarBatch
 from .engine.cpu import CpuMergeEngine
 from .persist.snapshot import batch_chunks
@@ -200,6 +206,20 @@ def compare_canonical(got: dict, want: dict) -> int:
     return len(diff)
 
 
+def compare_counter_sums(got: KeySpace, want: KeySpace, keys) -> int:
+    """Counter keys among `keys` whose per-key sum differs (canonical()
+    holds the slots, not the sums the flush maintains)."""
+    bad = 0
+    for k in keys:
+        kid_w = want.lookup(k)
+        if kid_w >= 0 and want.enc_of(kid_w) == S.ENC_COUNTER:
+            kid_g = got.lookup(k)
+            if kid_g < 0 or got.counter_sum(kid_g) != \
+                    want.counter_sum(kid_w):
+                bad += 1
+    return bad
+
+
 def verify_store(store: KeySpace, batches, n_keys: int,
                  target: int = 100_000) -> tuple[int, int]:
     """Oracle check of a merged store on the subsample.
@@ -208,3 +228,221 @@ def verify_store(store: KeySpace, batches, n_keys: int,
     want = oracle_canonical(batches, n_keys, target)
     return len(sub_keys), compare_canonical(store.canonical(keys=sub_keys),
                                             want)
+
+
+# ------------------------------------------------------------ steady state
+
+APPLY_BATCH = 512            # CONSTDB_APPLY_BATCH: frames per coalescer flush
+STREAM_ORIGIN = 99           # the peer node id of the replicated stream
+
+
+def _stream_frames(n_frames: int, n_keys: int, seed: int):
+    """The replicate-frame mix of bench.py make_frame_log, draw for draw
+    (Python's `random` with the same seed): -> [(cmd, key, args, uuid)].
+    Collection deletes (`delset`) are dropped: they are coalescer
+    barriers that apply through the node's per-key op path."""
+    import random
+    rng = random.Random(seed)
+    out = []
+    for i in range(1, n_frames + 1):
+        uuid = (MS0 + i) << SEQ_BITS
+        k = b"%06d" % rng.randrange(n_keys)
+        r = rng.random()
+        if r < 0.30:
+            out.append((b"set", b"r" + k, (b"v%08d" % i,), uuid))
+        elif r < 0.52:
+            out.append((b"cntset", b"c" + k,
+                        (rng.randrange(-10_000, 10_000),), uuid))
+        elif r < 0.72:
+            out.append((b"sadd", b"s" + k,
+                        tuple(b"m%03d" % rng.randrange(64)
+                              for _ in range(4)), uuid))
+        elif r < 0.80:
+            out.append((b"srem", b"s" + k,
+                        (b"m%03d" % rng.randrange(64),), uuid))
+        elif r < 0.90:
+            fv = []
+            for f in range(5):
+                fv += [b"f%02d" % rng.randrange(16), b"v%07d%d" % (i, f)]
+            out.append((b"hset", b"h" + k, tuple(fv), uuid))
+        elif r < 0.995:
+            out.append((b"hdel", b"h" + k,
+                        (b"f%02d" % rng.randrange(16),), uuid))
+        elif r < 0.998:
+            out.append((b"delbytes", b"r" + k, (), uuid))
+        # else: delset, a barrier (dropped, see the docstring)
+    return out
+
+
+_ELEM_ENC = {b"sadd": S.ENC_SET, b"srem": S.ENC_SET, b"hset": S.ENC_DICT,
+             b"hdel": S.ENC_DICT}
+
+
+def _stream_batch(frames) -> ColumnarBatch:
+    """One coalescer flush as replica/coalesce.py BatchBuilder.finalize
+    lays it out: the frames grouped by command in order of first
+    appearance, each group through its COLUMNAR_ENCODERS encoder
+    (server/commands.py) — one key row per frame, one counter row per
+    cntset, one element row per member or field.  The flush-time
+    key-delete rule (coalesce.apply_key_delete_rule) is not applied: it
+    tombstones element adds older than their key's delete time, and no
+    key of this stream has one (collection deletes are dropped; delbytes
+    touches registers only)."""
+    groups: dict = {}
+    for f in frames:
+        groups.setdefault(f[0], []).append(f)
+    keys, enc, ct, mt, dt = [], [], [], [], []
+    reg = []       # (ki, uuid, value)
+    cnt = []       # (ki, node, total, uuid, base, base_t)
+    el = []        # (ki, members, values or None, add_t, add_node, del_t)
+    dels: dict = {}
+    has_vals = False
+    for cmd, recs in groups.items():
+        for _c, key, args, uuid in recs:
+            ki = len(keys)
+            keys.append(key)
+            if cmd == b"delbytes":
+                enc.append(S.ENC_BYTES)
+                ct.append(0)
+                mt.append(uuid)
+                dt.append(uuid)
+                if dels.get(key, -1) < uuid:
+                    dels[key] = uuid
+                continue
+            enc.append(S.ENC_BYTES if cmd == b"set" else
+                       S.ENC_COUNTER if cmd == b"cntset" else _ELEM_ENC[cmd])
+            ct.append(uuid)
+            mt.append(uuid)
+            dt.append(0)
+            if cmd == b"set":
+                reg.append((ki, uuid, args[0]))
+            elif cmd == b"cntset":
+                cnt.append((ki, STREAM_ORIGIN, args[0], uuid, 0,
+                            S.NEUTRAL_T))
+            elif cmd == b"sadd":
+                el.append((ki, list(args), None, uuid, STREAM_ORIGIN, 0))
+            elif cmd == b"hset":
+                el.append((ki, list(args[0::2]), list(args[1::2]), uuid,
+                           STREAM_ORIGIN, 0))
+                has_vals = True
+            else:  # srem / hdel: a del-side max on a (0, 0) add side
+                el.append((ki, list(args), None, 0, 0, uuid))
+    n = len(keys)
+    b = ColumnarBatch()
+    b.keys = keys
+    b.key_enc = np.array(enc, dtype=np.int8)
+    b.key_ct = np.array(ct, dtype=_I64)
+    b.key_mt = np.array(mt, dtype=_I64)
+    b.key_dt = np.array(dt, dtype=_I64)
+    b.key_expire = np.zeros(n, dtype=_I64)
+    b.reg_val = [None] * n
+    b.reg_t = np.zeros(n, dtype=_I64)
+    b.reg_node = np.zeros(n, dtype=_I64)
+    for ki, uuid, v in reg:
+        b.reg_val[ki] = v
+        b.reg_t[ki] = uuid
+        b.reg_node[ki] = STREAM_ORIGIN
+    if cnt:
+        (b.cnt_ki, b.cnt_node, b.cnt_val, b.cnt_uuid, b.cnt_base,
+         b.cnt_base_t) = (np.array(c, dtype=_I64) for c in zip(*cnt))
+    if el:
+        counts = np.array([len(e[1]) for e in el], dtype=_I64)
+        rep = lambda j: np.repeat(  # noqa: E731
+            np.array([e[j] for e in el], dtype=_I64), counts)
+        b.el_ki = rep(0)
+        b.el_member = [m for e in el for m in e[1]]
+        if has_vals:
+            b.el_val = [v for e in el
+                        for v in (e[2] if e[2] is not None
+                                  else [None] * len(e[1]))]
+        else:
+            b.el_val = [None] * len(b.el_member)
+            b.el_has_vals = False
+        b.el_add_t = rep(3)
+        b.el_add_node = rep(4)
+        b.el_del_t = rep(5)
+    if dels:
+        b.del_keys = list(dels)
+        b.del_t = np.array(list(dels.values()), dtype=_I64)
+    b.rows_unique_per_slot = False
+    return b
+
+
+def make_stream_workload(n_frames: int = 200_000, n_keys: int = 20_000,
+                         seed: int = 11,
+                         batch_frames: int = APPLY_BATCH
+                         ) -> list[ColumnarBatch]:
+    """A peer's steady-state replication stream as the coalescer lands
+    it: the frame mix of `bench.py --mode stream` (bench.py
+    make_frame_log: 30% set, 22% cntset, 20% 4-member sadd, 8% srem, 10%
+    5-field hset, 9.5% hdel, 0.3% delbytes over `n_keys` keys per type
+    prefix, monotone HLC uuids from one origin) in flushes of
+    `batch_frames` frames, each a micro ColumnarBatch with
+    rows_unique_per_slot=False (see _stream_batch).  The collection
+    deletes (0.2% of the frames) are left out."""
+    frames = _stream_frames(n_frames, n_keys, seed)
+    return [_stream_batch(frames[i:i + batch_frames])
+            for i in range(0, len(frames), batch_frames)]
+
+
+def make_tensor_workload(n_rounds: int, batch_rows: int, n_keys: int,
+                         n_nodes: int, elems: int, strat: str,
+                         seed: int = 17) -> list[ColumnarBatch]:
+    """Per-round micro batches of tensor contributions, a copy of
+    bench.py make_tensor_workload: round 0 seeds every (key, node) slot
+    so reads always see `n_nodes` contributors (the model-merge shape),
+    later rounds write `batch_rows` random slots."""
+    rng = np.random.default_rng(seed)
+    cfg = T.pack_config(T.TensorMeta(T.STRATEGY_IDS[strat], 0, (elems,)))
+    u = 1
+    out = []
+    for r in range(n_rounds):
+        if r == 0:
+            pairs = [(k, nd) for k in range(n_keys)
+                     for nd in range(1, n_nodes + 1)]
+        else:
+            pairs = [(int(rng.integers(n_keys)),
+                      int(rng.integers(1, n_nodes + 1)))
+                     for _ in range(batch_rows)]
+        n = len(pairs)
+        b = ColumnarBatch()
+        b.keys = [b"t%06d" % k for k, _ in pairs]
+        uuids = np.empty(n, dtype=_I64)
+        for i in range(n):
+            u += 1
+            uuids[i] = (MS0 + u) << SEQ_BITS
+        b.key_enc = np.full(n, S.ENC_TENSOR, np.int8)
+        b.key_ct = uuids.copy()
+        b.key_mt = uuids.copy()
+        b.key_dt = np.zeros(n, dtype=_I64)
+        b.key_expire = np.zeros(n, dtype=_I64)
+        b.reg_val = [None] * n
+        b.reg_t = np.zeros(n, dtype=_I64)
+        b.reg_node = np.zeros(n, dtype=_I64)
+        b.tns_ki = np.arange(n, dtype=_I64)
+        b.tns_node = np.fromiter((nd for _, nd in pairs), dtype=_I64,
+                                 count=n)
+        b.tns_uuid = uuids
+        b.tns_cnt = rng.integers(1, 8, size=n).astype(_I64)
+        b.tns_cfg = [cfg] * n
+        payloads = (rng.standard_normal((n, elems)) * 4).astype(np.float32)
+        b.tns_payload = [payloads[i].tobytes() for i in range(n)]
+        b.rows_unique_per_slot = False
+        out.append(b)
+    return out
+
+
+def replay_oracle(batches) -> KeySpace:
+    """The CPU oracle of a micro-batch workload: every batch replayed in
+    order through the port's CpuMergeEngine into a fresh store (tensor
+    reads then come from KeySpace.tensor_read)."""
+    store = KeySpace()
+    cpu = CpuMergeEngine()
+    for b in batches:
+        cpu.merge_many(store, [b])
+    return store
+
+
+def batch_keys(batches) -> list:
+    """Distinct key bytes of a workload, in first-appearance order."""
+    return list(dict.fromkeys(k for b in batches for k in b.keys))

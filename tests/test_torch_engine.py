@@ -349,11 +349,21 @@ def test_port_catchup_verifies_against_oracle():
         assert eng.folds > 0
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        TorchMergeEngine(steady=True, device="cpu")
+def test_unported_options_raise(monkeypatch):
+    """The Pallas fold modes are not ported and raise.  The steady path
+    is: steady=None resolves on for a CUDA device and off for the CPU,
+    and steady=True constructs on the CPU."""
     with pytest.raises(ValueError):
         TorchMergeEngine(dense_fold="pallas", device="cpu")
+    monkeypatch.delenv("CONSTDB_TORCH_RESIDENT", raising=False)
+    assert TorchMergeEngine(resident=True, device="cpu").steady is False
+    assert TorchMergeEngine(steady=True, device="cpu").steady is True
+    import torch
+    from constdb_tpu_torch.engine import cuda as cuda_engine
+    monkeypatch.setattr(cuda_engine, "resolve_device",
+                        lambda _dev: torch.device("cuda", 0))
+    assert TorchMergeEngine(resident=True).steady is True
+    monkeypatch.undo()
     assert build_engine("cpu").name == "cpu"
     assert build_engine("cuda", device="cpu").resident
 

@@ -279,3 +279,247 @@ def test_dense_max_matches_xla():
     rng = np.random.default_rng(9)
     cols = rng.integers(-9, 9, (4, 16, 4)).astype(np.int64)
     _same(TD.dense_max(_t(cols)), JD.dense_max(jnp.asarray(cols)))
+
+
+# ------------------------------------------------------------ K3 plain
+
+def _pad1(a, n, fill):
+    out = np.full(n, fill, dtype=a.dtype)
+    out[: len(a)] = a
+    return out
+
+
+def _k3_reference(p, s, src, idx, bp, bs, base):
+    """The reference's Pallas kernel (interpret mode; its pads target a
+    free row with NEUTRAL values, the engine's protocol) and its XLA twin
+    (pads out of range) -> two (p, s, src) results."""
+    from constdb_tpu.engine.tpu import TpuMergeEngine
+    sp, n = len(p), len(idx)
+    np2 = PD._pow2(max(n, 1))
+    pad_row = TpuMergeEngine._scatter_pad_row(idx.astype(np.int64), n, sp) \
+        if np2 > n else 0
+    pallas = PD.scatter_pair_src(
+        jnp.array(p), jnp.array(s), jnp.array(src),
+        jnp.array(_pad1(idx, np2, pad_row)), jnp.array(_pad1(bp, np2, NT)),
+        jnp.array(_pad1(bs, np2, NT)), np.int32(base), interpret=True)
+    idx_x = np.concatenate([idx, (sp + np.arange(np2 - n)).astype(np.int32)])
+    xla = JB.bulk_lww_src(jnp.array(p), jnp.array(s), jnp.array(src),
+                          jnp.array(idx_x), jnp.array(_pad1(bp, np2, NT)),
+                          jnp.array(_pad1(bs, np2, NT)), base)
+    return pallas, xla
+
+
+def _k3_case(rng, sp, n, base):
+    """Unique rows; ties on the primary and on the whole pair, NEUTRAL_T
+    on both sides and int64 extremes."""
+    idx = rng.choice(sp, n, replace=False).astype(np.int32)
+    p = rng.integers(-4, 4, sp).astype(np.int64)
+    s = rng.integers(-4, 4, sp).astype(np.int64)
+    p[rng.random(sp) < 0.2] = NT
+    src = np.where(rng.random(sp) < 0.5, -1,
+                   rng.integers(0, 50, sp)).astype(np.int32)
+    bp = rng.integers(-4, 4, n).astype(np.int64)
+    bs = rng.integers(-4, 4, n).astype(np.int64)
+    bp[rng.random(n) < 0.15] = NT
+    tie = rng.random(n) < 0.3
+    bp[tie] = p[idx[tie]]
+    full = tie & (rng.random(n) < 0.5)
+    bs[full] = s[idx[full]]
+    if n >= 4:
+        bp[:2] = (I64_MAX, I64_MIN)
+        bs[:2] = (I64_MIN, I64_MAX)
+        p[idx[2]], s[idx[2]] = I64_MAX, I64_MIN
+        bp[2], bs[2] = I64_MAX, I64_MIN + 1
+    return p, s, src, idx, bp, bs, base
+
+
+@pytest.mark.parametrize("sp,n,base", [(8, 1, 0), (16, 5, 977),
+                                       (64, 64, (1 << 31) - 64),
+                                       (128, 37, (1 << 31) - 37)])
+def test_k3_scatter_pair_plain_matches_pallas_and_xla(sp, n, base):
+    """K3's plain version (the wrapper on CPU tensors, exactly n unpadded
+    rows) against the reference's Pallas kernel in interpret mode, its
+    XLA twin and the port's bulk_lww_src; `base` up to 2^31 - n."""
+    p, s, src, idx, bp, bs, base = _k3_case(
+        np.random.default_rng(sp * 7 + n), sp, n, base)
+    pallas, xla = _k3_reference(p, s, src, idx, bp, bs, base)
+    before = dict(KN.LAUNCHES)
+    port = KN.scatter_pair_src(_t(p), _t(s), _t(src), _t(idx), _t(bp),
+                               _t(bs), base)
+    assert KN.LAUNCHES == before  # CPU tensors: the plain version
+    _same(port, tuple(pallas))
+    _same(port, tuple(xla))
+    _same(port, TB.bulk_lww_src(_t(p), _t(s), _t(src), _t(idx), _t(bp),
+                                _t(bs), base))
+
+
+def test_k3_never_reverts_rows_outside_idx():
+    """The counterpart of the reference's pad-collision case: with no pad
+    rows at all, row 0 and every row outside idx stay bit-unchanged, and
+    the one real row's merge stands."""
+    sp = 8
+    p = np.arange(sp, dtype=np.int64) * 3
+    s = np.arange(sp, dtype=np.int64) - 4
+    src = np.arange(sp, dtype=np.int32) + 100
+    idx = np.array([5], dtype=np.int32)
+    bp = np.array([99], dtype=np.int64)
+    bs = np.array([1], dtype=np.int64)
+    got = KN.scatter_pair_src(_t(p), _t(s), _t(src), _t(idx), _t(bp),
+                              _t(bs), 7)
+    want_p, want_s, want_src = p.copy(), s.copy(), src.copy()
+    want_p[5], want_s[5], want_src[5] = 99, 1, 7
+    _same(got, (want_p, want_s, want_src))
+    pallas, xla = _k3_reference(p, s, src, idx, bp, bs, 7)
+    _same(got, tuple(pallas))
+    _same(got, tuple(xla))
+
+
+# ------------------------------------------------------------ K5 plain
+
+def _tensor_mat(rng, g, n, k, dtype):
+    """Payloads holding NaN, +-0, +-inf and subnormals among normals."""
+    mat = (rng.standard_normal((g, n, k)) * 9).astype(dtype)
+    tiny = np.finfo(dtype).tiny / 8
+    special = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf, tiny, -tiny],
+                       dtype=dtype)
+    pick = rng.random((g, n, k)) < 0.15
+    mat[pick] = special[rng.integers(0, len(special), pick.sum())]
+    # whole columns of signed zeros in both orders (the min/max tie rule)
+    mat[:, :, 0] = 0.0
+    mat[:, ::2, 1] = -0.0
+    mat[:, 1::2, 1] = 0.0
+    return mat
+
+
+def _bits(a):
+    a = np.ascontiguousarray(np.asarray(a))
+    return a.view(np.int64 if a.dtype == np.float64 else np.int32)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+@pytest.mark.parametrize("strat", ["sum", "avg", "maxmag", "trimmed-mean"])
+def test_k5_tensor_reduce_plain_matches_reference(strat, n, dtype):
+    """K5's plain version (and the avg composition around it) against
+    crdt.tensor.reduce_rows, the reference's XLA twins and, for f32, its
+    Pallas kernel in interpret mode: bit-identical, NaN included
+    (compared as integers), for n in {1, 2, 3, 8} (n = 8 has the first
+    non-pow2 trimmed divisor)."""
+    from constdb_tpu.crdt import tensor as JT
+    from constdb_tpu_torch.crdt import tensor as T
+    sid = T.STRATEGY_IDS[strat]
+    rng = np.random.default_rng(sid * 100 + n * 3 + (dtype == np.float64))
+    g, k = 4, 96
+    mat = _tensor_mat(rng, g, n, k, dtype)
+    cnts = rng.integers(1, 9, size=(g, n)).astype(np.int64)
+    order = np.arange(n)
+    with np.errstate(all="ignore"):
+        host = np.stack([JT.reduce_rows(sid, mat[j], cnts[j], order, order)
+                         for j in range(g)])
+    # the pool form: the [g * n] contributor rows scattered into a pool
+    pool = np.zeros((g * n + 5, k), dtype)
+    rows = rng.permutation(g * n + 5)[: g * n]
+    pool[rows] = mat.reshape(g * n, k)
+    idx = rows.astype(np.int32)
+    cf = cnts.astype(dtype)
+    div = dtype(n if n <= 2 else n - 2)
+    jbuf, jidx, jc = jnp.asarray(pool), jnp.asarray(idx), jnp.asarray(cf)
+    if sid == T.STRAT_AVG:
+        tots = cf[:, 0].copy()
+        for i in range(1, n):
+            tots = tots + cf[:, i]
+        tots = tots.reshape(g, 1)
+        wm = TD.tensor_take_scale(_t(pool), _t(idx), _t(cf), n=n, g=g)
+        port = TD.tensor_div(
+            KN.tensor_take_reduce(wm.reshape(g * n, k),
+                                  torch.arange(g * n, dtype=torch.int32),
+                                  div, strat=T.STRAT_SUM, n=n, g=g),
+            _t(tots))
+        assert torch.equal(_bits_t(TD.tensor_scale(_t(mat), _t(cf))),
+                           _bits_t(wm))
+        jwm = JD.tensor_take_scale(jbuf, jidx, jc, n=n, g=g)
+        refs = [JD.tensor_sum_div(jwm, jnp.asarray(tots), n=n)]
+        if dtype == np.float32:
+            refs.append(JD.tensor_div(
+                PD.tensor_reduce(_pad_k(np.asarray(jwm)), jc, div,
+                                 strat=T.STRAT_SUM, n=n,
+                                 interpret=True)[:, :k],
+                jnp.asarray(tots)))
+        assert torch.equal(_bits_t(TD.tensor_sum_div(wm, _t(tots), n=n)),
+                           _bits_t(port))
+    else:
+        port = KN.tensor_take_reduce(_t(pool), _t(idx), div, strat=sid,
+                                     n=n, g=g)
+        refs = [JD.tensor_take_reduce(jbuf, jidx, div, strat=sid, n=n, g=g),
+                JD.tensor_reduce(jnp.asarray(mat), jc, div, strat=sid, n=n)]
+        if dtype == np.float32:
+            refs.append(PD.tensor_reduce(_pad_k(mat), jc, div, strat=sid,
+                                         n=n, interpret=True)[:, :k])
+        assert torch.equal(_bits_t(TD.tensor_reduce(_t(mat), _t(cf), div,
+                                                    strat=sid, n=n)),
+                           _bits_t(port))
+    np.testing.assert_array_equal(_bits(port.numpy()), _bits(host))
+    # the reference's device twins: XLA on the CPU flushes subnormals to
+    # zero (numpy does not), so they are held only on columns free of
+    # them, and its NaN results may carry another sign (IEEE leaves a
+    # NaN's sign and payload open), so a NaN matches any NaN there
+    # (ROADMAP.md, queue 3)
+    sub = lambda a: (a != 0) & (np.abs(a) < np.finfo(dtype).tiny)  # noqa
+    with np.errstate(invalid="ignore"):
+        keep = ~(sub(mat).any(axis=1) | sub(host))
+    assert keep.mean() > 0.5
+    got = port.numpy()
+    for r in refs:
+        r = np.asarray(r)
+        same = (_bits(got) == _bits(r)) | (np.isnan(got) & np.isnan(r))
+        assert same[keep].all()
+
+
+def _pad_k(mat):
+    """The Pallas kernel's lane padding: K up to a multiple of 512."""
+    g, n, k = mat.shape
+    out = np.zeros((g, n, 512), mat.dtype)
+    out[:, :, :k] = mat
+    return jnp.asarray(out)
+
+
+def _bits_t(t):
+    return t.contiguous().view(torch.int64 if t.dtype == torch.float64
+                               else torch.int32)
+
+
+def test_k5_min_max_follow_numpy_not_torch():
+    """Trimmed-mean's min and max are selects with numpy's rule
+    (np.minimum / np.maximum: keep the running value when strictly
+    smaller / larger or NaN, else take the new one), where torch.minimum
+    and torch.maximum order signed zeros differently; a NaN anywhere in a
+    column makes the result NaN."""
+    from constdb_tpu_torch.crdt import tensor as T
+    a = np.array([0.0, -0.0, 0.0, np.nan, 1.0], np.float32)
+    b = np.array([-0.0, 0.0, 0.0, 1.0, np.nan], np.float32)
+    sel_mn = torch.where((_t(a) < _t(b)) | torch.isnan(_t(a)), _t(a), _t(b))
+    sel_mx = torch.where((_t(a) > _t(b)) | torch.isnan(_t(a)), _t(a), _t(b))
+    np.testing.assert_array_equal(_bits(sel_mn.numpy()),
+                                  _bits(np.minimum(a, b)))
+    np.testing.assert_array_equal(_bits(sel_mx.numpy()),
+                                  _bits(np.maximum(a, b)))
+    assert not np.array_equal(
+        _bits(torch.minimum(_t(a), _t(b)).numpy()), _bits(np.minimum(a, b)))
+    mat = np.array([[[0.0, -0.0, np.nan, 1.0, 2.0],
+                     [-0.0, 0.0, 2.0, np.nan, 5.0],
+                     [0.0, -0.0, 3.0, 4.0, -1.0]]], dtype=np.float32)
+    port = TD.tensor_reduce(_t(mat), None, np.float32(1),
+                            strat=T.STRAT_TRIMMED, n=3)
+    from constdb_tpu.crdt import tensor as JT
+    want = JT.reduce_rows(JT.STRAT_TRIMMED, mat[0], np.ones(3),
+                          np.arange(3), np.arange(3))
+    np.testing.assert_array_equal(_bits(port.numpy()[0]), _bits(want))
+
+
+def test_pool_scatter_updates_in_place():
+    buf = torch.zeros((6, 3))
+    vals = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    out = TD.pool_scatter(buf, torch.tensor([4, 1], dtype=torch.int32), vals)
+    assert out is buf
+    assert torch.equal(buf[4], vals[0]) and torch.equal(buf[1], vals[1])
+    assert not buf[[0, 2, 3, 5]].any()
