@@ -11,7 +11,14 @@ Phases, one line each; any failure raises and exits non-zero:
   3. kernels   each kernel against its plain PyTorch version on the card,
                bit-equal, at its path's shapes, with CUDA-event median
                times of the kernel, the plain version and (where one
-               exists) a single PyTorch library call;
+               exists) a single PyTorch library call.  K3: a fused round
+               with the segment rows of a phase-6 flush (timed against
+               the same segments launched one at a time) and two
+               one-segment cases, every row outside the ids unchanged;
+               K5: sum, maxmag, trimmed-mean (f32, f64) and fused avg
+               (timed against the scale -> K5 sum -> divide chain, with
+               no [G, n, Kp] allocation) at the bench shape, and the
+               odd-width, looped and small-n paths untimed;
   4. catch-up (auto)         make_workload(N keys, R replicas) in
                131072-key chunks, groups of 4R, resident TorchMergeEngine
                with dense_fold="auto", then flush; verified against the
@@ -26,12 +33,17 @@ Phases, one line each; any failure raises and exits non-zero:
                every 64th batch and at the end; verified against a CPU
                replay on the stream's keys and re-verified on phase 4's
                subsample; every round on the device, flushes partial, K3
-               must launch;
+               launched at most once a round, every round's
+               host-to-device copies exactly one for its scatter batch
+               plus one per mirror column it (re)built, and no
+               mask-compaction kernel in the profiled window;
   7. tensor    make_tensor_workload at bench.py --mode tensor's defaults
                (128 keys x 4096 f32 x 8 contributors, 24 rounds of 128
                rows) per strategy, every round reading all keys through
                tensor_read_many; reads and state bit-identical to the
-               host leg; K5 must launch for every non-lww strategy.
+               host leg; K5 launched once per group of every read for
+               every non-lww strategy, avg included; one read round of
+               each strategy profiled.
 Then one JSON line of kernel records, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.
 
@@ -52,8 +64,15 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
 # counted against the closest non-tensor peak, 67 TFLOP/s (FP32)
 ALU_OPS_PER_S = 67e12
 NEUTRAL_T = -(1 << 62)
+# device kernels of PyTorch's boolean-mask indexing (nonzero and its
+# compaction, index_put): the plain bulk ops' syncs
+COMPACTION_KERNELS = ("nonzero", "DeviceSelect", "DeviceCompact",
+                      "index_put", "masked_")
 CHUNK_KEYS = 131072
-SPIN_CYCLES = 200_000        # ~0.1 ms at the H100's 1.98 GHz SM clock
+# ~1 ms at the H100's 1.98 GHz SM clock: longer than the host takes to
+# enqueue the slowest timed call (five wrapper calls), even on a busy host
+SPIN_CYCLES = 2_000_000
+KIND_NAMES = {0: "PAIR_SRC", 1: "PAIR", 2: "MAX1"}   # ops/bulk.py kinds
 
 
 def log(msg: str) -> None:
@@ -74,7 +93,7 @@ def time_ms(fns: dict, reps: int = 200, warmup_s: float = 1.0,
     fns first run untimed for `warmup_s` seconds (the clocks of an idle
     card ramp up), then are timed in turns within every round, so a clock
     or neighbour drift affects all of them alike.  Before each launch
-    `flush` (untimed) runs, then a ~0.1 ms spin on the stream, so the
+    `flush` (untimed) runs, then a ~1 ms spin on the stream, so the
     host's enqueue work (the wrapper's checks and allocations) finishes
     while the card is still busy and never shows up between the events."""
     import torch
@@ -222,7 +241,8 @@ def profiled(fn) -> dict:
     """Run fn() once under torch.profiler (host and CUDA activity) and
     return its wall seconds, the device's busy seconds (the sum of the
     device-side events: kernels and copies; None when the profiler
-    reports none) and the busy seconds by kernel name."""
+    reports none), the busy seconds of the top kernel names and every
+    device event's full name."""
     import inspect
 
     import torch
@@ -237,6 +257,7 @@ def profiled(fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
+    names = set()
     for ev in prof.key_averages():
         # host-side aten ops also carry their kernels' device time: count
         # only the device-side events, once
@@ -246,12 +267,13 @@ def profiled(fn) -> dict:
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
         if us:
-            by_name[ev.key[:80]] = us / 1e6
+            names.add(ev.key)
+            by_name[ev.key[:80]] = by_name.get(ev.key[:80], 0.0) + us / 1e6
     busy = sum(by_name.values()) or None
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": None if busy is None else 1 - busy / wall,
-            "top_device_s": top}
+            "top_device_s": top, "device_names": sorted(names)}
 
 
 def same_bits(kernel: str, got, want) -> None:
@@ -270,7 +292,30 @@ def same_bits(kernel: str, got, want) -> None:
                 f"{int((~same).sum())} elements (bit pattern)")
 
 
-def steady_kernel_phase(dev, seed: int) -> dict:
+def typical_round(stream_keys: int, seed: int) -> list:
+    """Rows of each scatter of one phase-6 round, counted on a mid-stream
+    512-frame flush of make_stream_workload: the unique register keys,
+    counter slots and element slots the host folds leave, and the
+    element rows with a delete stamp (an upper bound of the del_t
+    advances).  The stream has no counter deletes, so the counter base
+    pair gets 3 rows, the delcnt rows tests/test_torch_steady.py adds to
+    a flush.  -> [(kind, rows)] in the engine's launch order."""
+    from constdb_tpu_torch import workload as W
+    from constdb_tpu_torch.crdt import semantics as S
+    from constdb_tpu_torch.ops import kernels as KN
+    b = W.make_stream_workload(512 * 5, stream_keys, seed=seed)[4]
+    keys = b.keys
+    reg = {keys[i] for i, v in enumerate(b.reg_val)
+           if v is not None and int(b.key_enc[i]) == S.ENC_BYTES}
+    cnt = set(zip((keys[k] for k in b.cnt_ki.tolist()),
+                  b.cnt_node.tolist()))
+    el = list(zip((keys[k] for k in b.el_ki.tolist()), b.el_member))
+    dels = {e for e, d in zip(el, b.el_del_t.tolist()) if d}
+    return [(KN.PAIR_SRC, len(reg)), (KN.PAIR_SRC, len(cnt)),
+            (KN.PAIR, 3), (KN.PAIR_SRC, len(set(el))), (KN.MAX1, len(dels))]
+
+
+def steady_kernel_phase(dev, seed: int, stream_keys: int) -> dict:
     """Hold K3 and K5 against their plain versions at the steady path's
     shapes; -> {name: record with a `cases` list}."""
     import torch
@@ -285,60 +330,104 @@ def steady_kernel_phase(dev, seed: int) -> dict:
     recs = {}
 
     # K3: int64 planes of 2^22 rows (the cap of the 1M-key catch-up's
-    # 3.2M-row counter plane), n unique random rows; small stamp ranges
-    # force primary ties, NEUTRAL_T rows never win, int64 extremes, and
-    # `base` sits at the top of the int32 range
+    # 3.2M-row counter plane), unique random rows per segment; small stamp
+    # ranges force primary ties, NEUTRAL_T rows never win, int64 extremes,
+    # and `base` sits at the top of the int32 range
     sp = 1 << 22
-    p0 = torch.randint(0, 8, (sp,), generator=g, dtype=i64, device=dev)
-    p0[torch.rand(sp, generator=g, device=dev) < 0.1] = NEUTRAL_T
-    s0 = torch.randint(-4, 4, (sp,), generator=g, dtype=i64, device=dev)
-    src0 = torch.full((sp,), -1, dtype=torch.int32, device=dev)
-    p, s, src = p0.clone(), s0.clone(), src0.clone()
-    q, t, qsrc = p0.clone(), s0.clone(), src0.clone()
 
-    def restore():
-        # rewrites 80 MB, which also evicts the 50 MB L2
-        for dst, orig in ((p, p0), (s, s0), (src, src0), (q, p0), (t, s0),
-                          (qsrc, src0)):
-            dst.copy_(orig)
+    def plane_pair():
+        p0 = torch.randint(0, 8, (sp,), generator=g, dtype=i64, device=dev)
+        p0[torch.rand(sp, generator=g, device=dev) < 0.1] = NEUTRAL_T
+        s0 = torch.randint(-4, 4, (sp,), generator=g, dtype=i64, device=dev)
+        return p0, s0
 
-    cases = []
-    for n in (1024, 32768):
+    def batch(n):
         idx = torch.randperm(sp, generator=g, device=dev)[:n].to(torch.int32)
         bp = torch.randint(0, 8, (n,), generator=g, dtype=i64, device=dev)
         bp[torch.rand(n, generator=g, device=dev) < 0.1] = NEUTRAL_T
         bs = torch.randint(-4, 4, (n,), generator=g, dtype=i64, device=dev)
         bp[:2] = torch.tensor([(1 << 63) - 1, -(1 << 63)], device=dev)
         bs[:2] = torch.tensor([-(1 << 63), (1 << 63) - 1], device=dev)
-        base = (1 << 31) - n
+        return idx, bp, bs
+
+    def k3_case(shape):
+        """shape [(kind, n)] -> a timed, checked round on fresh planes:
+        the fused launch, its plain loop, and (several segments) the same
+        segments launched one at a time."""
+        orig, mine, plain, segs, segs_q, nbytes = [], [], [], [], [], 0
+        base_top = 1 << 31
+        for kind, n in shape:
+            p0, s0 = plane_pair()
+            idx, bp, bs = batch(n)
+            if kind == KN.PAIR_SRC:
+                o = (p0, s0, torch.full((sp,), -1, dtype=torch.int32,
+                                        device=dev))
+                cols = (bp, bs)
+                base_top -= n
+                base = base_top
+            else:
+                o = (p0, s0) if kind == KN.PAIR else (p0,)
+                cols = (bp, bs) if kind == KN.PAIR else (bp,)
+                base = 0
+            orig.append(o)
+            mine.append(tuple(t.clone() for t in o))
+            plain.append(tuple(t.clone() for t in o))
+            segs.append(KN.Segment(kind, mine[-1], idx, cols, base))
+            segs_q.append(KN.Segment(kind, plain[-1], idx, cols, base))
+            # ids, batch columns and the target rows' plane values read
+            # once; winners written below
+            nbytes += n * 4 + 2 * 8 * len(cols) * n
+
+        def restore():
+            # rewrites every plane (hundreds of MB): also evicts the L2
+            for o, a, b in zip(orig, mine, plain):
+                for src_t, x, y in zip(o, a, b):
+                    x.copy_(src_t)
+                    y.copy_(src_t)
+
         restore()
-        KN.scatter_pair_src(p, s, src, idx, bp, bs, base)
-        B.bulk_lww_src(q, t, qsrc, idx, bp, bs, base)
+        KN.scatter_round(segs)
+        B.scatter_round(segs_q)
         torch.cuda.synchronize()
-        err = max_abs_err("K3 scatter_pair_src", [p, s, src.to(i64)],
-                          [q, t, qsrc.to(i64)])
-        outside = torch.ones(sp, dtype=torch.bool, device=dev)
-        outside[idx.to(i64)] = False
-        if not (torch.equal(p[outside], p0[outside]) and
-                torch.equal(s[outside], s0[outside]) and
-                torch.equal(src[outside], src0[outside])):
-            raise AssertionError("K3 scatter_pair_src wrote rows outside idx")
-        wins = int((src != src0).sum())
-        # each input read once (ids, the batch pair, the two plane values
-        # of every target row), each output written once (p, s, src of
-        # every winning row)
-        nbytes = n * 4 + n * 16 + n * 16 + wins * 20
-        b_ms, b_by = bound_ms(nbytes, 4 * n)
-        tm = time_ms(
-            {"ms": lambda: KN.scatter_pair_src(p, s, src, idx, bp, bs, base),
-             "plain_ms": lambda: B.bulk_lww_src(q, t, qsrc, idx, bp, bs,
-                                                base)},
-            flush=restore)
-        cases.append({**tm, "bound_ms": b_ms, "bound_by": b_by,
-                      "max_abs_err": err, "shape": [sp, n], "wins": wins})
+        err = max_abs_err("K3 scatter_round",
+                          [t.to(i64) for a in mine for t in a],
+                          [t.to(i64) for a in plain for t in a])
+        wins = 0
+        for (kind, n), o, a, sg in zip(shape, orig, mine, segs):
+            outside = torch.ones(sp, dtype=torch.bool, device=dev)
+            outside[sg.idx.to(i64)] = False
+            if not all(torch.equal(x[outside], y[outside])
+                       for x, y in zip(a, o)):
+                raise AssertionError("K3 scatter_round wrote rows outside "
+                                     "its ids")
+            changed = a[0] != o[0]
+            if len(a) > 1:
+                changed |= a[1] != o[1]
+            won = int(changed.sum())
+            wins += won
+            # a winning row writes every plane of its segment
+            nbytes += won * sum(t.element_size() for t in a)
+        rows = sum(n for _, n in shape)
+        b_ms, b_by = bound_ms(nbytes, 4 * rows)
+        fns = {"ms": lambda: KN.scatter_round(segs),
+               "plain_ms": lambda: B.scatter_round(segs_q)}
+        if len(shape) > 1:
+            fns["separate_ms"] = lambda: [KN.scatter_round([sg])
+                                          for sg in segs]
+        tm = time_ms(fns, flush=restore)
+        return {**tm, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                "shape": [sp, rows], "wins": wins,
+                "segments": [[KIND_NAMES[kind], n] for kind, n in shape]}
+
+    rnd = typical_round(stream_keys, seed)
+    cases = [k3_case(rnd)]
+    cases[0]["case"] = "round"
+    for n in (1024, 32768):
+        c = k3_case([(KN.PAIR_SRC, n)])
+        c["case"] = f"one PAIR_SRC segment, n={n}"
+        cases.append(c)
     recs["scatter_pair_src"] = {**cases[0], "library_ms": None,
                                 "cases": cases}
-    del p0, s0, src0, p, s, src, q, t, qsrc
 
     # K5: bench.py --mode tensor's read shape: G = 128 keys x n = 8
     # contributors x 4096 elements, gathered from a 1024-row pool; NaN,
@@ -349,26 +438,49 @@ def steady_kernel_phase(dev, seed: int) -> dict:
     def flush_l2():
         scratch.fill_(1)
 
-    cases = []
-    for strat, dtype in ((T.STRAT_SUM, torch.float32),
-                         (T.STRAT_MAXMAG, torch.float32),
-                         (T.STRAT_TRIMMED, torch.float32),
-                         (T.STRAT_TRIMMED, torch.float64)):
-        buf = torch.randn((G * n, kp), generator=g, device=dev,
+    def clean_l2():
+        # a 128 MB read also evicts the L2, and leaves no dirty line whose
+        # write-back the timed launch would pay for (the fill leaves the
+        # L2 full of them)
+        scratch.sum()
+
+    def payloads(dtype, rows, k):
+        buf = torch.randn((rows, k), generator=g, device=dev,
                           dtype=dtype) * 4
         special = torch.tensor([float("nan"), 0.0, -0.0, float("inf"),
                                 -float("inf"), 1e-40 if dtype ==
                                 torch.float32 else 1e-310],
                                dtype=dtype, device=dev)
-        pick = torch.rand((G * n, kp), generator=g, device=dev) < 0.02
-        which = torch.randint(0, len(special), (G * n, kp), generator=g,
+        pick = torch.rand((rows, k), generator=g, device=dev) < 0.02
+        which = torch.randint(0, len(special), (rows, k), generator=g,
                               device=dev)
-        buf = torch.where(pick, special[which], buf)
+        return torch.where(pick, special[which], buf)
+
+    def weights(dtype, groups, nn):
+        """avg's count weights [groups * nn] and their totals [groups],
+        summed in canonical order in the payload dtype as the engine does."""
+        w = torch.randint(1, 9, (groups, nn), generator=g,
+                          device=dev).to(dtype)
+        tot = w[:, 0].clone()
+        for i in range(1, nn):
+            tot = tot + w[:, i]
+        return w.reshape(-1).contiguous(), tot
+
+    cases = []
+    for strat, dtype in ((T.STRAT_SUM, torch.float32),
+                         (T.STRAT_MAXMAG, torch.float32),
+                         (T.STRAT_TRIMMED, torch.float32),
+                         (T.STRAT_TRIMMED, torch.float64),
+                         (T.STRAT_AVG, torch.float32)):
+        buf = payloads(dtype, G * n, kp)
         idx = torch.randperm(G * n, generator=g,
                              device=dev).to(torch.int32)
         div = n - 2
-        got = KN.tensor_take_reduce(buf, idx, div, strat=strat, n=n, g=G)
-        want = D.tensor_take_reduce(buf, idx, div, strat=strat, n=n, g=G)
+        avg = strat == T.STRAT_AVG
+        w, tot = weights(dtype, G, n) if avg else (None, None)
+        kw = {"strat": strat, "n": n, "g": G, "w": w, "tot": tot}
+        got = KN.tensor_take_reduce(buf, idx, div, **kw)
+        want = D.tensor_take_reduce(buf, idx, div, **kw)
         torch.cuda.synchronize()
         same_bits("K5 tensor_take_reduce", [got], [want])
         fin = torch.isfinite(want)
@@ -376,19 +488,77 @@ def steady_kernel_phase(dev, seed: int) -> dict:
         esz = buf.element_size()
         nbytes = G * n * 4 + G * n * kp * esz + G * kp * esz
         ops = G * kp * n * (3 if strat == T.STRAT_TRIMMED else 1)
+        fns = {"ms": lambda: KN.tensor_take_reduce(buf, idx, div, **kw),
+               "plain_ms": lambda: D.tensor_take_reduce(buf, idx, div, **kw)}
+        extra = {}
+        if avg:
+            nbytes += G * n * esz + G * esz
+            ops = G * kp * (2 * n + 1)
+            iota = torch.arange(G * n, dtype=torch.int32, device=dev)
+            tot2 = tot.reshape(G, 1)
+
+            def chain():
+                # avg as three launches: plain scale, K5 sum, plain divide
+                wm = D.tensor_take_scale(buf, idx, w.reshape(G, n), n=n, g=G)
+                acc = KN.tensor_take_reduce(wm.reshape(G * n, kp), iota, div,
+                                            strat=T.STRAT_SUM, n=n, g=G)
+                return D.tensor_div(acc, tot2)
+
+            same_bits("K5 avg against the scale-sum-divide chain",
+                      [got], [chain()])
+            fns["chain_ms"] = chain
+            # no [G, n, Kp] intermediate: the launch allocates only [G, Kp]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            m0 = torch.cuda.memory_allocated(dev)
+            KN.tensor_take_reduce(buf, idx, div, **kw)
+            torch.cuda.synchronize()
+            extra["peak_extra_bytes"] = \
+                torch.cuda.max_memory_allocated(dev) - m0
+            if extra["peak_extra_bytes"] >= G * n * kp * esz:
+                raise AssertionError("K5 avg allocated a [G, n, Kp] "
+                                     "intermediate")
         b_ms, b_by = bound_ms(nbytes, ops)
-        tm = time_ms(
-            {"ms": lambda: KN.tensor_take_reduce(buf, idx, div, strat=strat,
-                                                 n=n, g=G),
-             "plain_ms": lambda: D.tensor_take_reduce(buf, idx, div,
-                                                      strat=strat, n=n, g=G)},
-            flush=flush_l2)
-        cases.append({**tm, "bound_ms": b_ms, "bound_by": b_by,
+        tm = time_ms(fns, flush=flush_l2)
+        tm.update(time_ms({"clean_ms": fns["ms"]}, flush=clean_l2,
+                          warmup_s=0.3))
+        cases.append({**tm, **extra, "bound_ms": b_ms, "bound_by": b_by,
                       "max_abs_err": err, "shape": [G, n, kp],
                       "strategy": T.STRATEGY_NAMES[strat],
                       "dtype": str(dtype).replace("torch.", "")})
+    # the floor of one launch in this loop: a group of one contributor of
+    # four elements (launch, id and load latency, next to no bytes)
+    tiny = payloads(torch.float32, 1, 4)
+    tiny_idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    cases[0].update(time_ms({"floor_ms": lambda: KN.tensor_take_reduce(
+        tiny, tiny_idx, 1, strat=T.STRAT_SUM, n=1, g=1)}, flush=flush_l2,
+        warmup_s=0.3))
+    # the paths the bench shape does not take, checked untimed: odd and
+    # 2-aligned widths (scalar and 8-byte accesses), n > 8 (the looped
+    # path), n <= 2 trimmed-mean, avg in both dtypes
+    coverage = []
+    for strat, dtype, gg, nn, k in (
+            (T.STRAT_TRIMMED, torch.float32, 9, 11, 4095),
+            (T.STRAT_AVG, torch.float32, 7, 3, 4094),
+            (T.STRAT_SUM, torch.float64, 5, 1, 4095),
+            (T.STRAT_AVG, torch.float64, 6, 13, 4096),
+            (T.STRAT_TRIMMED, torch.float32, 4, 2, 4096),
+            (T.STRAT_MAXMAG, torch.float64, 3, 17, 1027),
+            (T.STRAT_TRIMMED, torch.float64, 8, 8, 2050)):
+        buf = payloads(dtype, gg * nn + 3, k)
+        idx = torch.randperm(gg * nn + 3, generator=g,
+                             device=dev)[:gg * nn].to(torch.int32)
+        div = nn if nn <= 2 else nn - 2
+        w, tot = weights(dtype, gg, nn) if strat == T.STRAT_AVG \
+            else (None, None)
+        kw = {"strat": strat, "n": nn, "g": gg, "w": w, "tot": tot}
+        same_bits("K5 tensor_take_reduce",
+                  [KN.tensor_take_reduce(buf, idx, div, **kw)],
+                  [D.tensor_take_reduce(buf, idx, div, **kw)])
+        coverage.append([T.STRATEGY_NAMES[strat],
+                         str(dtype).replace("torch.", ""), gg, nn, k])
     recs["tensor_take_reduce"] = {**cases[0], "library_ms": None,
-                                  "cases": cases}
+                                  "cases": cases, "coverage": coverage}
     del scratch
     return recs
 
@@ -409,17 +579,37 @@ def stream_phase(dev, eng, store, catch_batches, n_keys: int, frames: int,
     rows = sum(b.n_rows for b in batches)
     g0 = {k: getattr(eng, k) for k in (
         "dev_rounds_resident", "host_micro_rounds", "flush_rows_downloaded",
-        "flush_rows_full_equiv", "bytes_h2d", "bytes_d2h")}
+        "flush_rows_full_equiv", "bytes_h2d", "bytes_d2h", "h2d_copies")}
     fs0 = dict(eng.family_secs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     KN.reset_launches()
+    # host-to-device copies issued by the merge rounds themselves (the
+    # flushes upload their dirty-row ids apart): one packed copy for the
+    # round's K3 launch, plus one per column of a family mirror the round
+    # (re)built; any other count is a fault
+    copies = {"round": 0, "mirror": 0, "off": []}
+
+    def merge(b):
+        c0, l0 = eng.h2d_copies, KN.LAUNCHES["scatter_pair_src"]
+        fams0, rb0 = set(eng._res), dict(eng.mirror_rebuilds)
+        eng.merge_many(store, [b])
+        got = eng.h2d_copies - c0
+        built = (set(eng._res) - fams0) | {
+            f for f, v in eng.mirror_rebuilds.items() if v > rb0[f]}
+        mirror = sum(len(eng._res[f]["cols"]) for f in built
+                     if f in eng._res)
+        copies["round"] += got
+        copies["mirror"] += mirror
+        if got != KN.LAUNCHES["scatter_pair_src"] - l0 + mirror:
+            copies["off"].append((got, mirror))
+
     # the last 64 flushes run under the profiler (device busy share);
     # the rates come from the unprofiled rest
     cut = len(batches) - 64
     t0 = time.perf_counter()
     for i, b in enumerate(batches[:cut]):
-        eng.merge_many(store, [b])
+        merge(b)
         if i % 64 == 63:
             eng.flush(store)
     eng.flush(store)
@@ -430,7 +620,7 @@ def stream_phase(dev, eng, store, catch_batches, n_keys: int, frames: int,
 
     def window():
         for b in batches[cut:]:
-            eng.merge_many(store, [b])
+            merge(b)
         eng.flush(store)
 
     prof = profiled(window)
@@ -455,12 +645,32 @@ def stream_phase(dev, eng, store, catch_batches, n_keys: int, frames: int,
         raise AssertionError("steady stream: flushes were not partial "
                              f"({d['flush_rows_downloaded']} of "
                              f"{d['flush_rows_full_equiv']} rows)")
-    if not launches["scatter_pair_src"]:
-        raise AssertionError("steady stream did not launch K3")
+    rounds = d["dev_rounds_resident"]
+    if not 0 < launches["scatter_pair_src"] <= rounds:
+        raise AssertionError(f"steady stream: K3 launched "
+                             f"{launches['scatter_pair_src']} times in "
+                             f"{rounds} device rounds")
+    if copies["off"]:
+        raise AssertionError(
+            f"steady stream: {len(copies['off'])} rounds made other "
+            "host-to-device copies than one for the scatter batch and one "
+            "per mirror column built, (copies, mirror columns): "
+            f"{copies['off'][:8]}")
+    scatter_copies = copies["round"] - copies["mirror"]
+    compaction = [k for k in prof["device_names"]
+                  if any(m in k for m in COMPACTION_KERNELS)]
+    if compaction:
+        raise AssertionError("steady stream: the profiled window ran the "
+                             f"plain ops' mask compactions: {compaction}")
     out = {"wall_s": wall, "frames": n_frames, "batches": len(batches),
            "rows": rows, "frames_per_s": frames_cut / wall,
            "rows_per_s": rows_cut / wall, "launches": launches,
-           "profiled_window": prof,
+           "round_h2d_copies": copies["round"],
+           "mirror_h2d_copies": copies["mirror"],
+           "h2d_copies_per_round": scatter_copies / rounds,
+           "k3_launches_per_round": launches["scatter_pair_src"] / rounds,
+           "profiled_window": {k: v for k, v in prof.items()
+                               if k != "device_names"},
            "verified_stream_keys": len(keys), "verified_catchup_keys":
            checked, "mismatches": 0, "gen_s": t_gen, "verify_s": t_ver,
            **{k: v for k, v in d.items()},
@@ -476,6 +686,12 @@ def stream_phase(dev, eng, store, catch_batches, n_keys: int, frames: int,
         f"{out['family_secs']['micro']} s, flush "
         f"{out['family_secs']['flush']} s, rounds on the device "
         f"{d['dev_rounds_resident']}, on the host {d['host_micro_rounds']}, "
+        f"K3 launches per round {out['k3_launches_per_round']:.3f}, "
+        f"host-to-device copies per round for the scatter batch "
+        f"{out['h2d_copies_per_round']:.3f}, {copies['mirror']} for mirror "
+        f"columns built, {d['h2d_copies'] - copies['round']} by the "
+        f"flushes, "
+        f"no mask compaction on the device, "
         f"flush rows {d['flush_rows_downloaded']} of "
         f"{d['flush_rows_full_equiv']}, launches={launches}, peak "
         f"{out['peak_mem_bytes']} B; verified {len(keys)} stream keys and "
@@ -491,12 +707,14 @@ def tensor_phase(dev) -> dict:
     import torch
 
     from constdb_tpu_torch import workload as W
+    from constdb_tpu_torch.crdt import tensor as T
     from constdb_tpu_torch.engine.cpu import CpuMergeEngine
     from constdb_tpu_torch.engine.cuda import TorchMergeEngine
     from constdb_tpu_torch.ops import kernels as KN
     from constdb_tpu_torch.store.keyspace import KeySpace
 
     n_keys, elems, n_nodes, rounds, batch_rows = 128, 4096, 8, 24, 128
+    kids = tuple(range(n_keys))
     launches = dict.fromkeys(KN.LAUNCHES, 0)
     legs = []
     engines = []
@@ -511,9 +729,13 @@ def tensor_phase(dev) -> dict:
         KN.reset_launches()
         t0 = time.perf_counter()
         dev_reads = []
+        group_reads = 0  # K5 groups of every read, from the read cache
         for b in batches:
             eng.merge_many(store, [b])
-            dev_reads.append(eng.tensor_read_many(store, range(n_keys)))
+            dev_reads.append(eng.tensor_read_many(store, kids))
+            group_reads += sum(
+                g[0] != T.STRAT_LWW for g in
+                eng._tns_read_cache["by_kids"][kids]["groups"])
         eng.flush(store)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -544,8 +766,12 @@ def tensor_phase(dev) -> dict:
             raise AssertionError(f"tensor {strat}: rows on the device "
                                  f"{eng.tns_dev_rows}, on the host "
                                  f"{eng.tns_host_rows}")
-        if strat != "lww" and not got_l["tensor_take_reduce"]:
-            raise AssertionError(f"tensor {strat} did not launch K5")
+        # one K5 launch per group of every read (avg fused into it)
+        if got_l["tensor_take_reduce"] != group_reads or \
+                (strat != "lww") != (group_reads > 0):
+            raise AssertionError(
+                f"tensor {strat}: K5 launched {got_l['tensor_take_reduce']} "
+                f"times for {group_reads} group reads")
         leg = {"strategy": strat, "wall_s": wall, "rows": rows,
                "rows_per_s": rows / wall, "reads": rounds * n_keys,
                "host_leg_s": host_wall, "tns_dev_rows": eng.tns_dev_rows,
@@ -561,10 +787,11 @@ def tensor_phase(dev) -> dict:
 
     def read_rounds():
         for eng, store in engines:
-            eng.tensor_read_many(store, range(n_keys))
+            eng.tensor_read_many(store, kids)
 
     # one more read round of every strategy, profiled (device busy share)
     prof = profiled(read_rounds)
+    prof.pop("device_names")
     for eng, _store in engines:
         eng.close()
     log(f"tensor: one read round of each strategy, profiled: device busy "
@@ -656,18 +883,21 @@ def main() -> int:
                 log(f"build[{name}]: {line.strip()}")
 
     recs = kernel_phase(dev, args.seed)
-    recs.update(steady_kernel_phase(dev, args.seed))
+    recs.update(steady_kernel_phase(dev, args.seed, args.stream_keys))
     log(f"kernels: SM clock, max SM clock after timing: {sm_clock()}")
     for name, r in recs.items():
         for c in r.get("cases", [r]):
             lib = "n/a" if r["library_ms"] is None \
                 else f"{r['library_ms']:.4f}"
-            what = " ".join(str(c[k]) for k in ("strategy", "dtype")
+            what = " ".join(str(c[k]) for k in ("case", "strategy", "dtype")
                             if k in c)
+            more = "".join(f", {k[:-3]} {c[k]:.4f} ms" for k in
+                           ("separate_ms", "chain_ms", "clean_ms",
+                            "floor_ms") if k in c)
             log(f"kernels: {name} {c['shape']} {what} bit-equal to plain; "
-                f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
-                f"library {lib} ms, bound {c['bound_ms']:.3g} ms "
-                f"({c['bound_by']})")
+                f"kernel {c['ms']:.4f} ms{more}, plain {c['plain_ms']:.4f} "
+                f"ms, library {lib} ms, bound {c['bound_ms']:.3g} ms "
+                f"({c['bound_by']}, {c['bound_ms'] / c['ms']:.0%} of it)")
 
     rep = args.replicas
     auto, eng, store, catch_batches = catchup(

@@ -26,8 +26,10 @@ resident slot contributions).
 **Steady state** (`steady`, on by default for a resident engine on a
 CUDA device): op-stream micro-batches (the replication coalescer's
 flushes, at most HOST_SCATTER_MAX rows) fold their duplicate slots on
-the host and merge the unique winners IN PLACE into the resident planes
-with K3 scatter_pair_src; `flush()` then gathers and downloads only the
+the host and merge the unique winners IN PLACE into the resident planes:
+every scatter of a batch (the LWW pairs, the counter base pair, the
+element del_t max) goes up in one packed copy and runs in one K3
+scatter_round launch; `flush()` then gathers and downloads only the
 dirty rows.  Tensor-register payloads live in resident device pools and
 batched reads (`tensor_read_many`) reduce on the card with K5
 tensor_take_reduce.  With `steady` off, micro-batches take the host
@@ -50,7 +52,7 @@ import concurrent.futures
 import logging
 import os
 import time
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -73,6 +75,20 @@ _I32 = np.int32
 
 FOLD_MODES = ("auto", "cuda", "eager", "off")
 FAMILIES = ("env", "reg", "cnt", "el", "tns")
+# pinned staging slots of the steady rounds' packed uploads
+STAGE_RING = 4
+
+
+class _Scatter(NamedTuple):
+    """One collected scatter of a steady round, launched at the end of the
+    batch: a KN segment kind, the family and plane names, host ids
+    (int32) and batch columns (int64), and the src base (PAIR_SRC)."""
+    kind: int
+    fam: str
+    names: tuple
+    ids: np.ndarray
+    cols: tuple
+    base: int = 0
 
 
 def _pad(arr: np.ndarray, size: int, fill) -> np.ndarray:
@@ -251,9 +267,14 @@ class TorchMergeEngine:
                                     512) << 20
         self._stage_ex = None
         self._stage_pending = None
-        # host<->device transfer accounting
+        # host<->device transfer accounting (h2d_copies: copies issued)
         self.bytes_h2d = 0
         self.bytes_d2h = 0
+        self.h2d_copies = 0
+        # pinned staging ring of the steady rounds' packed uploads: a slot
+        # is rewritten only after the event recorded behind its last copy
+        self._ring = [{"buf": None, "ev": None} for _ in range(STAGE_RING)]
+        self._ring_i = 0
         self._res: dict[str, dict] = {}   # fam -> {cols, n, cap, ...}
         # deferred win-value resolution (resident mode): host value pool
         # the device `src` planes index into, resolved once at flush
@@ -276,12 +297,53 @@ class TorchMergeEngine:
         updated in place and must not alias the host columns)."""
         arr = np.ascontiguousarray(arr)
         self.bytes_h2d += arr.nbytes
+        self.h2d_copies += 1
         if self.device.type == "cpu":
             return torch.from_numpy(arr.copy())
         if not arr.flags.writeable:
             arr = arr.copy()
         return torch.from_numpy(arr).pin_memory().to(self.device,
                                                      non_blocking=True)
+
+    def _h2d_packed(self, i64: list, i32: list):
+        """Several int64 and int32 host columns to the device in ONE copy:
+        packed int64 first (alignment), then int32, into a pinned slot of
+        the staging ring, one non_blocking copy, an event behind it.
+        -> (int64 device views, int32 device views), in order."""
+        cols = [(np.ascontiguousarray(c, dtype=_I64), torch.int64)
+                for c in i64] + \
+            [(np.ascontiguousarray(c, dtype=_I32), torch.int32) for c in i32]
+        nbytes = sum(c.nbytes for c, _ in cols)
+        self.bytes_h2d += nbytes
+        self.h2d_copies += 1
+        cuda = self.device.type == "cuda"
+        if cuda:
+            slot = self._ring[self._ring_i]
+            self._ring_i = (self._ring_i + 1) % len(self._ring)
+            if slot["ev"] is not None:
+                slot["ev"].synchronize()   # its last copy has read it
+            if slot["buf"] is None or slot["buf"].numel() < nbytes:
+                slot["buf"] = torch.empty(K.next_pow2(max(nbytes, 1 << 16)),
+                                          dtype=torch.uint8, pin_memory=True)
+            host_t = slot["buf"][:nbytes]
+        else:
+            host_t = torch.empty(nbytes, dtype=torch.uint8)
+        host = host_t.numpy()
+        offs = []
+        off = 0
+        for c, _ in cols:
+            host[off:off + c.nbytes] = c.view(np.uint8)
+            offs.append(off)
+            off += c.nbytes
+        dev = host_t
+        if cuda:
+            dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            dev.copy_(host_t, non_blocking=True)
+            slot["ev"] = torch.cuda.Event()
+            slot["ev"].record()
+        views = [dev[o:o + c.nbytes].view(dt)
+                 for (c, dt), o in zip(cols, offs)]
+        return views[:len(i64)], views[len(i64):]
 
     def _get(self, t: torch.Tensor) -> np.ndarray:
         """Blocking download of one tensor into a fresh numpy array."""
@@ -928,12 +990,14 @@ class TorchMergeEngine:
     # ------------------------------------------------ steady micro merges
     # Op-stream micro-batches (the replication coalescer's flushes) merge
     # IN PLACE into the resident planes.  Duplicate slots fold on the host
-    # with the shared reductions of engine/hostbatch.py, the unique
-    # winners of each LWW pair go to the card in one K3 launch, the env
-    # plane stays host-authoritative (its merge is a max into the host
-    # columns: no device bytes, and key-dt reads never need a flush), and
-    # every scattered row joins the family's dirty set so flush()
-    # downloads only those rows.
+    # with the shared reductions of engine/hostbatch.py; the unique
+    # winners of every scatter of the batch (each LWW pair, the counter
+    # base pair, the element del_t max) are collected, go up in one
+    # packed copy and run in one K3 scatter_round launch at the end of
+    # the batch.  The env plane stays host-authoritative (its merge is a
+    # max into the host columns: no device bytes, and key-dt reads never
+    # need a flush), and every scattered row joins the family's dirty set
+    # so flush() downloads only those rows.
 
     def host_stale(self, families) -> bool:
         """True when any of `families` holds unflushed device-side merge
@@ -1008,7 +1072,14 @@ class TorchMergeEngine:
         families scatter in place into the resident planes (the device
         twin of hostbatch.merge_host_batch, fold for fold: both sides use
         the same fold_* reductions, so the scattered winners ARE the host
-        path's winners), cold families take their host twins."""
+        path's winners), cold families take their host twins.
+
+        The device scatters are collected into `rnd` and launched once,
+        after the element family and before the tensor rows: nothing in
+        between reads the device planes (a fresh mirror that
+        _resident_state uploads lands before the launch, on the same
+        stream), and the tensor merge may flush.  Batches never share a
+        launch: two batches of one call can repeat a row."""
         from ..utils.tables import nonnull_mask
         from .hostbatch import (_apply_cnt_pair, _merge_el, _merge_env,
                                 _merge_reg, _resolve_el_rows,
@@ -1017,6 +1088,7 @@ class TorchMergeEngine:
             # a forced-fold catch-up can leave a device env mirror; the
             # micro path keeps env host-authoritative, so sync it down once
             self._drop_family(store, "env")
+        rnd: list[_Scatter] = []
         valid = kid_of >= 0
         all_valid = bool(valid.all())
         if b.n_keys:
@@ -1034,7 +1106,7 @@ class TorchMergeEngine:
                         kid_of[idx], b.reg_t[idx], b.reg_node[idx])
                     vals = list(map(b.reg_val.__getitem__,
                                     idx[srci].tolist()))
-                    self._micro_scatter_pair(store, "reg",
+                    self._micro_scatter_pair(store, rnd, "reg",
                                              ("rv_t", "rv_node"),
                                              wk, wt, wn, vals)
                 else:
@@ -1058,14 +1130,15 @@ class TorchMergeEngine:
                     # pool at flush, so the two columns never download
                     wr, wu, wv, _ = fold_pair_rows(rows, b.cnt_uuid[sel],
                                                    b.cnt_val[sel])
-                    self._micro_scatter_pair(store, "cnt", ("uuid", "val"),
-                                             wr, wu, wv, None)
+                    self._micro_scatter_pair(store, rnd, "cnt",
+                                             ("uuid", "val"), wr, wu, wv,
+                                             None)
                     if not base_neutral:
                         # base pair (counter deletes, rare): no src
                         # tracking, its dirty rows download at flush
                         wr2, wbt, wb, _ = fold_pair_rows(rows, bt,
                                                          b.cnt_base[sel])
-                        self._micro_scatter_pair(store, "cnt",
+                        self._micro_scatter_pair(store, rnd, "cnt",
                                                  ("base_t", "base"),
                                                  wr2, wbt, wb, None,
                                                  src=False)
@@ -1095,8 +1168,9 @@ class TorchMergeEngine:
                     _merge_el(store, rows, b.el_add_t[sel],
                               b.el_add_node[sel], b.el_del_t[sel], vals)
                 else:
-                    self._micro_elems(store, b, sel, rows, vals)
+                    self._micro_elems(store, rnd, b, sel, rows, vals)
 
+        self._launch_round(rnd)
         if len(b.tns_ki):
             self._merge_micro_tns(store, b, kid_of, st,
                                   device=bool(placement.get("tns")))
@@ -1104,11 +1178,12 @@ class TorchMergeEngine:
         for i, key in enumerate(b.del_keys):
             store.record_key_delete(key, int(b.del_t[i]))
 
-    def _micro_elems(self, store: KeySpace, b: ColumnarBatch, sel,
-                     rows: np.ndarray, vals) -> None:
+    def _micro_elems(self, store: KeySpace, rnd: list, b: ColumnarBatch,
+                     sel, rows: np.ndarray, vals) -> None:
         """Element rows of one micro-batch on the device: the add pair
-        scatters through K3; the del side is a plain max applied to the
-        HOST column with the device del_t plane advanced in lockstep.  A
+        scatters as a PAIR_SRC segment; the del side is a plain max
+        applied to the HOST column with the device del_t plane advanced in
+        lockstep by a MAX1 segment of the same round.  A
         host-only write would leave the mirror's del_t stale, and a later
         forced-fold bulk round (which reads and downloads del_t) would
         regress the host column and resurrect deleted elements.
@@ -1121,7 +1196,7 @@ class TorchMergeEngine:
             wvals = None  # winning valueless adds still CLEAR the value
         else:
             wvals = list(map(vals.__getitem__, srci.tolist()))
-        self._micro_scatter_pair(store, "el", ("add_t", "add_node"),
+        self._micro_scatter_pair(store, rnd, "el", ("add_t", "add_node"),
                                  wr, wat, wan, wvals)
         nz = np.flatnonzero(d_red)
         if not len(nz):
@@ -1135,42 +1210,61 @@ class TorchMergeEngine:
         dv_adv = dv[adv]
         store.el.del_t[rows_adv] = dv_adv
         self._el_del_touched.append(rows_adv)
-        res = self._res["el"]
-        res["cols"]["del_t"] = B.bulk_max1(
-            res["cols"]["del_t"], self._h2d(rows_adv.astype(_I32)),
-            self._h2d(dv_adv))
+        rnd.append(_Scatter(KN.MAX1, "el", ("del_t",),
+                            rows_adv.astype(_I32),
+                            (np.asarray(dv_adv, dtype=_I64),)))
 
-    def _micro_scatter_pair(self, store: KeySpace, fam: str, pair, wr,
-                            wp, ws, vals, src: bool = True) -> None:
-        """Scatter one folded LWW pair in place into `fam`'s resident
-        planes.  `pair` = (primary, secondary) column names; the win rule
-        is lexicographic (primary, secondary) > current, exactly
+    def _micro_scatter_pair(self, store: KeySpace, rnd: list, fam: str,
+                            pair, wr, wp, ws, vals, src: bool = True) -> None:
+        """Collect one folded LWW pair for an in-place scatter into
+        `fam`'s resident planes (launched with the rest of the round by
+        _launch_round).  `pair` = (primary, secondary) column names; the
+        win rule is lexicographic (primary, secondary) > current, exactly
         hostbatch's fold rule and ops/bulk._pair_win.  With `src` (the
-        default) the launch is K3 and the winners' pool ids land in the
-        resident src plane: flush downloads the int32 src rows and
+        default) the segment is PAIR_SRC and the winners' pool ids land in
+        the resident src plane: flush downloads the int32 src rows and
         reconstructs both columns and the win values from the host pool.
-        src=False (the rare counter base pair) stays on the plain
-        bulk_lww, keeps its winner on the device and downloads its dirty
-        rows at flush."""
+        src=False (the rare counter base pair) is a PAIR segment: it keeps
+        its winner on the device and downloads its dirty rows at flush.
+        The bookkeeping (dirty rows, written columns, src and recon) is
+        recorded here: the planes update in place."""
         nw = len(wr)
         if not nw:
             return
         cols, sp = self._resident_state(store, fam, _fam_rows(store, fam))
         pcol, scol = pair
-        idx = self._h2d(wr.astype(_I32))
-        bp = self._h2d(np.asarray(wp, dtype=_I64))
-        bs = self._h2d(np.asarray(ws, dtype=_I64))
+        planes = {pcol: cols[pcol], scol: cols[scol]}
+        batch = (np.asarray(wp, dtype=_I64), np.asarray(ws, dtype=_I64))
+        ids = wr.astype(_I32)
         if src:
             src_d = self._src_state(fam, sp)
             pb = self._pool_add(vals, **{pcol: wp, scol: ws})
-            p2, s2, src2 = KN.scatter_pair_src(cols[pcol], cols[scol], src_d,
-                                               idx, bp, bs, int(pb))
-            self._micro_done(fam, {pcol: p2, scol: s2}, src2,
-                             {pcol: pcol, scol: scol}, {pcol, scol}, wr)
-        else:
-            p2, s2, _win = B.bulk_lww(cols[pcol], cols[scol], idx, bp, bs)
-            self._micro_done(fam, {pcol: p2, scol: s2}, None, None,
+            rnd.append(_Scatter(KN.PAIR_SRC, fam, pair, ids, batch, int(pb)))
+            self._micro_done(fam, planes, src_d, {pcol: pcol, scol: scol},
                              {pcol, scol}, wr)
+        else:
+            rnd.append(_Scatter(KN.PAIR, fam, pair, ids, batch))
+            self._micro_done(fam, planes, None, None, {pcol, scol}, wr)
+
+    def _launch_round(self, rnd: list) -> None:
+        """Upload a batch's collected scatters in one packed copy and
+        apply them in one K3 scatter_round launch, on the planes the
+        family records hold now."""
+        if not rnd:
+            return
+        d64, d32 = self._h2d_packed([c for e in rnd for c in e.cols],
+                                    [e.ids for e in rnd])
+        segs = []
+        k = 0
+        for e, idx in zip(rnd, d32):
+            res = self._res[e.fam]
+            planes = tuple(res["cols"][c] for c in e.names)
+            if e.kind == KN.PAIR_SRC:
+                planes += (res["src"],)
+            segs.append(KN.Segment(e.kind, planes, idx,
+                                   tuple(d64[k:k + len(e.cols)]), e.base))
+            k += len(e.cols)
+        KN.scatter_round(segs)
 
     def _micro_done(self, fam: str, cols: dict, src, recon, written: set,
                     rows: np.ndarray) -> None:
@@ -1514,8 +1608,9 @@ class TorchMergeEngine:
     def tensor_read_many(self, store: KeySpace, kids) -> dict:
         """Batched tensor reads: {kid: flat payload array, or None when no
         contribution landed}.  With the steady path on, contributor stacks
-        reduce ON THE CARD (K5; lww picks its winner from the host stamps)
-        and only the [G, elems] results download; dirty payloads never
+        reduce ON THE CARD, one K5 launch per group (avg included; lww
+        picks its winner from the host stamps), and only the [G, elems]
+        results download; dirty payloads never
         round-trip through the host.  Otherwise the host reference
         (KeySpace.tensor_read).
 
@@ -1541,7 +1636,7 @@ class TorchMergeEngine:
             rc["by_kids"][kids_t] = cache
         out = dict(cache["empty"])
         for grp in cache["groups"]:
-            (strat, n, g, members, pool, idx_dev, iota_dev, flat_rows,
+            (strat, n, g, members, pool, idx_dev, flat_rows,
              rows_mat, nodes_mat, slots_mat) = grp
             buf = pool["buf"]
             if strat == T.STRAT_LWW:
@@ -1558,25 +1653,21 @@ class TorchMergeEngine:
                 # trimmed-mean divisor as a runtime value of the payload
                 # dtype
                 div = pool["dtype"].type(n if n <= 2 else n - 2)
+                w = tot = None
                 if strat == T.STRAT_AVG:
-                    # scale (the products round at this boundary), K5 sum
-                    # over the rounded products, divide by the count
-                    # totals, which accumulate on the host with the
-                    # canonical sequential dtype chain
-                    cnts_f = store.tns.cnt[flat_rows].reshape(g, n).astype(
-                        pool["dtype"])
-                    tot = cnts_f[:, 0].copy()
+                    # K5 fuses avg: each product with its count weight
+                    # rounds, the products sum in order and divide by the
+                    # count totals, which accumulate on the host with the
+                    # canonical sequential dtype chain; weights and totals
+                    # go up in one copy
+                    cnts_f = store.tns.cnt[flat_rows].astype(pool["dtype"])
+                    tot_h = cnts_f[0::n].copy()
                     for i in range(1, n):
-                        tot = tot + cnts_f[:, i]
-                    wmat = D.tensor_take_scale(buf, idx_dev,
-                                               self._h2d(cnts_f), n=n, g=g)
-                    acc = KN.tensor_take_reduce(
-                        wmat.reshape(g * n, -1), iota_dev, div,
-                        strat=T.STRAT_SUM, n=n, g=g)
-                    red = D.tensor_div(acc, self._h2d(tot.reshape(g, 1)))
-                else:
-                    red = KN.tensor_take_reduce(buf, idx_dev, div,
-                                                strat=strat, n=n, g=g)
+                        tot_h = tot_h + cnts_f[i::n]
+                    wt = self._h2d(np.concatenate([cnts_f, tot_h]))
+                    w, tot = wt[:g * n], wt[g * n:]
+                red = KN.tensor_take_reduce(buf, idx_dev, div, strat=strat,
+                                            n=n, g=g, w=w, tot=tot)
                 got = self._get(red)
             for j, kid in enumerate(members):
                 out[kid] = got[j]
@@ -1613,11 +1704,9 @@ class TorchMergeEngine:
             m = pool["map"]
             slots_mat = np.fromiter((m[r] for r in flat.tolist()),
                                     dtype=_I64, count=g * n).reshape(g, n)
-            iota_dev = self._h2d(np.arange(g * n, dtype=_I32)) \
-                if strat == T.STRAT_AVG else None
             groups.append((strat, n, g, [kid for kid, _m2, _r in mem], pool,
                            self._h2d(slots_mat.reshape(-1).astype(_I32)),
-                           iota_dev, flat, flat.reshape(g, n),
+                           flat, flat.reshape(g, n),
                            store.tns.node[flat.reshape(g, n)], slots_mat))
         return {"empty": empty, "groups": groups}
 

@@ -34,6 +34,8 @@ flush to resolve win values and rebuild the winner-carried columns.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..crdt.semantics import NEUTRAL_T
@@ -43,7 +45,8 @@ __all__ = ["NEUTRAL_T", "device_full", "bulk_max", "bulk_max1", "bulk_lww",
            "bulk_counters_src", "bulk_elems",
            "bulk_lww_src", "bulk_elems_src_nodt",
            "bulk_lww_src_iota", "bulk_counters_vu_src_iota",
-           "bulk_elems_src_nodt_iota", "gather_rows", "idx_iota"]
+           "bulk_elems_src_nodt_iota", "gather_rows", "idx_iota",
+           "PAIR_SRC", "PAIR", "MAX1", "Segment", "scatter_round"]
 
 _I64 = torch.int64
 _I32 = torch.int32
@@ -231,3 +234,38 @@ def bulk_elems(at, an, dt, idx, bat, ban, bdt):
 # An element add side without its del side IS the plain LWW pair.
 bulk_elems_src_nodt = bulk_lww_src
 bulk_elems_src_nodt_iota = bulk_lww_src_iota
+
+
+# ------------------------------------------------------ steady scatter round
+# One steady round's in-place scatters: the plain version of K3
+# (ops/kernels.py scatter_round), which fuses them into one launch.
+# Segment kinds:
+PAIR_SRC = 0  # LWW pair with a win-source plane (bulk_lww_src)
+PAIR = 1      # LWW pair without one: the counter base pair (bulk_lww)
+MAX1 = 2      # plain max into one plane: the element del_t (bulk_max1)
+
+
+class Segment(NamedTuple):
+    """One scatter of a round.  `planes` = (p, s, src) for PAIR_SRC,
+    (p, s) for PAIR, (p,) for MAX1, updated IN PLACE; `idx` [n] int32
+    unique plane rows; `cols` = (bp, bs) for the pairs, (bp,) for MAX1,
+    [n] int64; `base` the src id of row 0 (PAIR_SRC)."""
+    kind: int
+    planes: tuple
+    idx: torch.Tensor
+    cols: tuple
+    base: int = 0
+
+
+def scatter_round(segs) -> None:
+    """Apply the segments in order, each with its plain bulk op.  Every
+    segment of a round targets its own planes."""
+    for g in segs:
+        if g.kind == PAIR_SRC:
+            bulk_lww_src(*g.planes, g.idx, *g.cols, g.base)
+        elif g.kind == PAIR:
+            bulk_lww(*g.planes, g.idx, *g.cols)
+        elif g.kind == MAX1:
+            bulk_max1(*g.planes, g.idx, *g.cols)
+        else:
+            raise ValueError(f"scatter_round: unknown segment kind {g.kind}")

@@ -155,11 +155,18 @@ def _reduce_chain(mat, strat: int, n: int, div):
     raise ValueError(f"tensor_reduce: strategy {strat} reduces on host")
 
 
-def tensor_take_reduce(buf, idx, div, *, strat: int, n: int, g: int):
+def tensor_take_reduce(buf, idx, div, *, strat: int, n: int, g: int,
+                       w=None, tot=None):
     """Pool gather + strategy reduction -> [G, Kp]: `buf` [C, Kp] pool,
     `idx` [G * n] int32 pool rows (n contributors per group in canonical
-    order).  sum / maxmag / trimmed-mean only: avg composes
-    tensor_take_scale -> STRAT_SUM -> tensor_div, lww picks a row."""
+    order).  avg takes the count weights `w` [G * n] and totals `tot`
+    [G] (payload dtype) and stays the separate chain tensor_take_scale
+    -> STRAT_SUM -> tensor_div, which K5 fuses; lww picks a row."""
+    from ..crdt.tensor import STRAT_AVG, STRAT_SUM
+    if strat == STRAT_AVG:
+        wmat = tensor_take_scale(buf, idx, w.reshape(g, n), n=n, g=g)
+        return tensor_div(_reduce_chain(wmat, STRAT_SUM, n, div),
+                          tot.reshape(g, 1))
     return _reduce_chain(_take(buf, idx, n, g), strat, n, div)
 
 

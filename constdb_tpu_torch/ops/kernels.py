@@ -6,8 +6,11 @@ K4) and on the steady state (K3, K5):
 
   * K1 `merge_elems`    (csrc/merge_fold.cu)  <- pallas_dense.merge_elems
   * K2 `merge_counters` (csrc/merge_fold.cu)  <- pallas_dense.merge_counters
-  * K3 `scatter_pair_src` (csrc/scatter_pair.cu)
-                        <- pallas_dense.scatter_pair_src_split
+  * K3 `scatter_round` (csrc/scatter_pair.cu)
+                        <- pallas_dense.scatter_pair_src_split: every
+                        in-place scatter of one steady round in one
+                        launch (`scatter_pair_src` is its one-segment
+                        case)
   * K4 `segment_sum`    (csrc/segment_sum.cu) <- pallas_dense.segment_sum
   * K5 `tensor_take_reduce` (csrc/tensor_reduce.cu)
                         <- pallas_dense.tensor_reduce
@@ -20,9 +23,9 @@ launch on PyTorch's current stream with raw device pointers.  A failed
 build or a failed launch raises: nothing falls back.
 
 Each wrapper takes its plain PyTorch version (ops/dense.py, and
-ops/bulk.py `bulk_lww_src` for K3) only when the tensors it was given lie
-on the CPU.  On CUDA tensors it launches the
-kernel, counts the launch in `LAUNCHES`, or raises.
+ops/bulk.py `scatter_round` for K3) only when the tensors it was given
+lie on the CPU.  On CUDA tensors it launches the kernel, counts the
+launch in `LAUNCHES`, or raises.
 """
 
 from __future__ import annotations
@@ -42,8 +45,9 @@ from . import bulk as B
 from . import dense as D
 
 __all__ = ["LAUNCHES", "SOURCES", "build", "merge_elems", "merge_lww",
-           "merge_counters", "scatter_pair_src", "segment_sum",
-           "tensor_take_reduce", "reset_launches"]
+           "merge_counters", "scatter_round", "scatter_pair_src",
+           "segment_sum", "tensor_take_reduce", "reset_launches",
+           "Segment", "PAIR_SRC", "PAIR", "MAX1", "MAX_SEGMENTS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
@@ -54,7 +58,8 @@ SOURCES = {"merge_fold": "merge_fold.cu", "segment_sum": "segment_sum.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel name -> launches since the last reset_launches()
+# kernel name -> launches since the last reset_launches(); K3 counts
+# fused round launches under its reference name
 LAUNCHES = {"merge_elems": 0, "merge_counters": 0, "scatter_pair_src": 0,
             "segment_sum": 0, "tensor_take_reduce": 0}
 
@@ -69,12 +74,30 @@ _SIGNATURES = {
     "constdb_merge_counters": [_P, _P, ctypes.c_int, ctypes.c_int64,
                                _P, _P, _P],
     "constdb_segment_sum": [_P, _P, ctypes.c_int64, ctypes.c_int64, _P, _P],
-    "constdb_scatter_pair_src": [_P, _P, _P, ctypes.c_int64, _P, _P, _P,
-                                 ctypes.c_int64, ctypes.c_int32, _P],
-    "constdb_tensor_take_reduce": [_P, _P, ctypes.c_int64, ctypes.c_int,
-                                   ctypes.c_int64, ctypes.c_double,
+    "constdb_scatter_round": [_P, _P],
+    "constdb_tensor_take_reduce": [_P, _P, _P, _P, ctypes.c_int64,
+                                   ctypes.c_int, ctypes.c_int64,
+                                   ctypes.c_double, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_int, _P, _P],
 }
+
+PAIR_SRC, PAIR, MAX1 = B.PAIR_SRC, B.PAIR, B.MAX1
+Segment = B.Segment
+MAX_SEGMENTS = 8   # csrc/scatter_pair.cu kMaxSegments
+
+
+class _Seg(ctypes.Structure):
+    """csrc/scatter_pair.cu `Segment`, field for field."""
+    _fields_ = [("p", _P), ("s", _P), ("src", _P), ("idx", _P), ("bp", _P),
+                ("bs", _P), ("sp", ctypes.c_int64), ("start", ctypes.c_int64),
+                ("base", ctypes.c_int32), ("kind", ctypes.c_int32)]
+
+
+class _Round(ctypes.Structure):
+    """csrc/scatter_pair.cu `Round`, passed by pointer and copied into
+    the kernel's by-value parameter."""
+    _fields_ = [("seg", _Seg * MAX_SEGMENTS), ("total", ctypes.c_int64),
+                ("count", ctypes.c_int32)]
 
 
 def reset_launches() -> None:
@@ -253,53 +276,126 @@ def segment_sum(ids: torch.Tensor, vals: torch.Tensor,
     return out
 
 
+# planes and batch columns of each segment kind: (planes, cols)
+_ARITY = {PAIR_SRC: (3, 2), PAIR: (2, 2), MAX1: (1, 1)}
+
+
+def _check_segment(g: Segment) -> None:
+    if g.kind not in _ARITY:
+        raise ValueError(f"scatter_round: unknown segment kind {g.kind}")
+    n_planes, n_cols = _ARITY[g.kind]
+    if len(g.planes) != n_planes or len(g.cols) != n_cols:
+        raise ValueError(f"scatter_round: kind {g.kind} takes {n_planes} "
+                         f"planes and {n_cols} batch columns")
+    int64_planes = g.planes[:2] if g.kind == PAIR_SRC else g.planes
+    _check("scatter_round", *int64_planes, *g.cols)
+    _check("scatter_round", g.idx, *g.planes[2:], dtype=torch.int32)
+    p = g.planes[0]
+    if p.dim() != 1 or any(t.shape != p.shape for t in g.planes):
+        raise ValueError("scatter_round: planes must be equal-length 1-D")
+    if g.idx.dim() != 1 or any(c.shape != g.idx.shape for c in g.cols):
+        raise ValueError("scatter_round: batch columns must be n-long 1-D")
+    if g.kind == PAIR_SRC and not 0 <= int(g.base) <= \
+            (1 << 31) - g.idx.shape[0]:
+        raise ValueError("scatter_round: base + n must fit int32")
+
+
+def scatter_round(segs) -> None:
+    """K3: every in-place scatter of one steady round in ONE launch.
+    `segs` are ops/bulk.py Segments (at most MAX_SEGMENTS with rows), each
+    on planes no other segment of the round touches, each with UNIQUE
+    rows: PAIR_SRC writes (p, s) and src = base + i where (bp[i], bs[i]) >
+    (p[idx[i]], s[idx[i]]) lexicographically, PAIR the same without src,
+    MAX1 p = max(p, bp).  Ids outside the plane are dropped."""
+    segs = [g for g in segs if g.idx.shape[0]]
+    if not segs:
+        return
+    # the launch's contract, checked for the plain version too
+    if len(segs) > MAX_SEGMENTS:
+        raise ValueError(f"scatter_round: {len(segs)} segments, at most "
+                         f"{MAX_SEGMENTS} per launch")
+    tensors = [t for g in segs for t in (*g.planes, g.idx, *g.cols)]
+    cpu = _on_cpu(*tensors)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("scatter_round: segments on different devices")
+    for g in segs:
+        _check_segment(g)
+    planes = [t.data_ptr() for g in segs for t in g.planes]
+    if len(set(planes)) != len(planes):
+        raise ValueError("scatter_round: two segments share a plane")
+    if cpu:
+        B.scatter_round(segs)
+        return
+    rnd = _Round()
+    start = 0
+    for k, g in enumerate(segs):
+        p, s, src = (*g.planes, None, None)[:3]
+        rnd.seg[k] = _Seg(
+            p.data_ptr(), s.data_ptr() if s is not None else None,
+            src.data_ptr() if src is not None else None, g.idx.data_ptr(),
+            g.cols[0].data_ptr(),
+            g.cols[1].data_ptr() if len(g.cols) > 1 else None,
+            p.shape[0], start, int(g.base) if g.kind == PAIR_SRC else 0,
+            g.kind)
+        start += g.idx.shape[0]
+    rnd.total = start
+    rnd.count = len(segs)
+    lib = _lib("scatter_pair")
+    rc = lib.constdb_scatter_round(ctypes.byref(rnd),
+                                   _stream(segs[0].idx))
+    _check_rc(lib, "scatter_round", rc)
+    LAUNCHES["scatter_pair_src"] += 1
+
+
 def scatter_pair_src(p: torch.Tensor, s: torch.Tensor, src: torch.Tensor,
                      idx: torch.Tensor, bp: torch.Tensor, bs: torch.Tensor,
                      base: int):
-    """K3: in-place gather-compare-scatter of one LWW pair against
-    resident planes.  p, s [Sp] int64 (primary, secondary), src [Sp]
-    int32, idx [n] int32 UNIQUE rows, bp, bs [n] int64; where
-    (bp[i], bs[i]) > (p[idx[i]], s[idx[i]]) lexicographically the pair is
-    written and src[idx[i]] = base + i.  The planes are updated IN PLACE
-    and returned as (p, s, src)."""
-    if _on_cpu(p, s, src, idx, bp, bs):
-        return B.bulk_lww_src(p, s, src, idx, bp, bs, base)
-    _check("scatter_pair_src", p, s, bp, bs)
-    _check("scatter_pair_src", src, idx, dtype=torch.int32)
-    sp = int(p.shape[0])
-    n = int(idx.shape[0])
-    if p.dim() != 1 or s.shape != p.shape or src.shape != p.shape:
-        raise ValueError("scatter_pair_src: planes must be equal-length 1-D")
-    if idx.dim() != 1 or bp.shape != idx.shape or bs.shape != idx.shape:
-        raise ValueError("scatter_pair_src: batch columns must be n-long 1-D")
-    base = int(base)
-    if base < 0 or base + n > (1 << 31):
-        raise ValueError("scatter_pair_src: base + n must fit int32")
-    if n:
-        lib = _lib("scatter_pair")
-        rc = lib.constdb_scatter_pair_src(
-            p.data_ptr(), s.data_ptr(), src.data_ptr(), sp, idx.data_ptr(),
-            bp.data_ptr(), bs.data_ptr(), n, base, _stream(p))
-        _check_rc(lib, "scatter_pair_src", rc)
-        LAUNCHES["scatter_pair_src"] += 1
+    """K3 with one PAIR_SRC segment: in-place gather-compare-scatter of
+    one LWW pair against resident planes.  p, s [Sp] int64 (primary,
+    secondary), src [Sp] int32, idx [n] int32 UNIQUE rows, bp, bs [n]
+    int64; where (bp[i], bs[i]) > (p[idx[i]], s[idx[i]])
+    lexicographically the pair is written and src[idx[i]] = base + i.
+    -> (p, s, src), updated IN PLACE."""
+    scatter_round([Segment(PAIR_SRC, (p, s, src), idx, (bp, bs), base)])
     return p, s, src
 
 
+def _vec_width(*tensors: torch.Tensor) -> int:
+    """Columns per access for K5: the widest of 16, 8 or 4 bytes that
+    divides every row and every pointer's alignment."""
+    esz = tensors[0].element_size()
+    kp = int(tensors[0].shape[-1])
+    for nbytes in (16, 8, 4):
+        w = nbytes // esz
+        if w >= 1 and kp % w == 0 and \
+                all(t.data_ptr() % nbytes == 0 for t in tensors):
+            return w
+    return 1
+
+
 def tensor_take_reduce(buf: torch.Tensor, idx: torch.Tensor, div, *,
-                       strat: int, n: int, g: int) -> torch.Tensor:
+                       strat: int, n: int, g: int, w=None,
+                       tot=None) -> torch.Tensor:
     """K5: pool gather + canonical strategy reduction -> [g, Kp].  `buf`
     [C, Kp] f32 or f64 pool, `idx` [g * n] int32 pool rows in canonical
-    contributor order, `div` the trimmed-mean divisor; sum, maxmag and
-    trimmed-mean (avg composes outside, see ops/dense.py)."""
-    from ..crdt.tensor import STRAT_MAXMAG, STRAT_SUM, STRAT_TRIMMED
-    if _on_cpu(buf, idx):
-        return D.tensor_take_reduce(buf, idx, div, strat=strat, n=n, g=g)
+    contributor order, `div` the trimmed-mean divisor; sum, maxmag,
+    trimmed-mean and avg, for which `w` [g * n] are the count weights and
+    `tot` [g] the count totals, both in the payload dtype."""
+    from ..crdt.tensor import (STRAT_AVG, STRAT_MAXMAG, STRAT_SUM,
+                               STRAT_TRIMMED)
+    avg = strat == STRAT_AVG
+    if avg and (w is None or tot is None):
+        raise ValueError("tensor_take_reduce: avg needs w and tot")
+    extra = (w, tot) if avg else ()
+    if _on_cpu(buf, idx, *extra):
+        return D.tensor_take_reduce(buf, idx, div, strat=strat, n=n, g=g,
+                                    w=w, tot=tot)
     if buf.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"tensor_take_reduce: expected f32/f64, "
                         f"got {buf.dtype}")
-    _check("tensor_take_reduce", buf, dtype=buf.dtype)
+    _check("tensor_take_reduce", buf, *extra, dtype=buf.dtype)
     _check("tensor_take_reduce", idx, dtype=torch.int32)
-    if strat not in (STRAT_SUM, STRAT_MAXMAG, STRAT_TRIMMED):
+    if strat not in (STRAT_SUM, STRAT_AVG, STRAT_MAXMAG, STRAT_TRIMMED):
         raise ValueError(f"tensor_take_reduce: strategy {strat} does not "
                          "reduce in the kernel")
     if buf.dim() != 2 or idx.dim() != 1 or idx.shape[0] != g * n or \
@@ -308,13 +404,19 @@ def tensor_take_reduce(buf: torch.Tensor, idx: torch.Tensor, div, *,
                          f"idx [g * n] with n >= 1; got "
                          f"{tuple(buf.shape)}, {tuple(idx.shape)}, n={n}, "
                          f"g={g}")
+    if avg and (w.numel() != g * n or tot.numel() != g):
+        raise ValueError("tensor_take_reduce: avg needs w [g * n] and "
+                         "tot [g]")
     kp = int(buf.shape[1])
     out = torch.empty((g, kp), dtype=buf.dtype, device=buf.device)
     if g and kp:
         lib = _lib("tensor_reduce")
         rc = lib.constdb_tensor_take_reduce(
-            buf.data_ptr(), idx.data_ptr(), g, n, kp, float(div), int(strat),
-            int(buf.dtype == torch.float64), out.data_ptr(), _stream(buf))
+            buf.data_ptr(), idx.data_ptr(),
+            w.data_ptr() if avg else None, tot.data_ptr() if avg else None,
+            g, n, kp, float(div), int(strat),
+            int(buf.dtype == torch.float64), _vec_width(buf, out),
+            out.data_ptr(), _stream(buf))
         _check_rc(lib, "tensor_take_reduce", rc)
         LAUNCHES["tensor_take_reduce"] += 1
     return out

@@ -374,6 +374,85 @@ def test_k3_never_reverts_rows_outside_idx():
     _same(got, tuple(xla))
 
 
+def _round_segment(rng, kind, sp, n, n_oob):
+    """One segment of a steady round: its own planes, n rows of which
+    n_oob target ids past the plane (dropped); ties, NEUTRAL_T and int64
+    extremes as in _k3_case."""
+    p, s, src, idx, bp, bs, _ = _k3_case(rng, sp, n, 0)
+    if n_oob:
+        pos = rng.choice(n, n_oob, replace=False)
+        idx[pos] = sp + np.arange(n_oob, dtype=np.int32)
+    if kind == KN.PAIR_SRC:
+        return (p, s, src), idx, (bp, bs)
+    if kind == KN.PAIR:
+        return (p, s), idx, (bp, bs)
+    return (p,), idx, (bp,)
+
+
+# (kind, plane rows, rows, out-of-range rows); the last PAIR_SRC of each
+# round sits at the top of the int32 src range
+K3_ROUNDS = [
+    [(KN.PAIR_SRC, 64, 20, 0), (KN.PAIR, 32, 7, 2), (KN.MAX1, 48, 9, 1),
+     (KN.PAIR_SRC, 128, 37, 3)],
+    [(KN.PAIR_SRC, 16, 5, 0), (KN.PAIR_SRC, 40, 12, 0), (KN.PAIR, 8, 3, 0),
+     (KN.PAIR_SRC, 64, 64, 0), (KN.MAX1, 64, 30, 4)],
+    [(KN.MAX1, 16, 16, 0), (KN.PAIR_SRC, 8, 1, 0)],
+]
+
+
+@pytest.mark.parametrize("r", range(len(K3_ROUNDS)))
+def test_k3_round_plain_matches_pallas_and_xla_per_segment(r):
+    """The fused round's plain version (the wrapper on CPU tensors) equals
+    the reference applied segment by segment in order: PAIR_SRC against
+    the Pallas kernel in interpret mode (segments with every id in range)
+    and the XLA bulk_lww_src, PAIR against bulk_lww, MAX1 against
+    bulk_max1; exact int64, out-of-range ids dropped."""
+    rng = np.random.default_rng(100 + r)
+    base = 1 << 31
+    segs, refs = [], []
+    for kind, sp, n, n_oob in K3_ROUNDS[r]:
+        planes, idx, cols = _round_segment(rng, kind, sp, n, n_oob)
+        b = 0
+        if kind == KN.PAIR_SRC:
+            base -= n
+            b = base
+        j = [jnp.array(x) for x in (*planes, idx, *cols)]
+        if kind == KN.PAIR_SRC:
+            want = [tuple(JB.bulk_lww_src(*j, b))]
+            if not n_oob:
+                want.append(tuple(_k3_reference(*planes, idx, *cols, b)[0]))
+        elif kind == KN.PAIR:
+            want = [tuple(JB.bulk_lww(*j)[:2])]
+        else:
+            want = [(JB.bulk_max1(*j),)]
+        refs.append(want)
+        segs.append(KN.Segment(kind, tuple(_t(x) for x in planes), _t(idx),
+                               tuple(_t(x) for x in cols), b))
+    before = dict(KN.LAUNCHES)
+    KN.scatter_round(segs)
+    assert KN.LAUNCHES == before  # CPU tensors: the plain version
+    for g, want in zip(segs, refs):
+        for w in want:
+            _same(tuple(g.planes), w)
+
+
+def test_k3_round_rejects_shared_planes_and_too_many_segments():
+    """The fused launch's contract holds on every device: at most eight
+    segments, and no plane written by two segments of one round."""
+    p = torch.zeros(8, dtype=torch.int64)
+    q = torch.zeros(8, dtype=torch.int64)
+    idx = torch.tensor([1], dtype=torch.int32)
+    one = torch.ones(1, dtype=torch.int64)
+    seg = lambda plane: KN.Segment(KN.MAX1, (plane,), idx, (one,))  # noqa
+    with pytest.raises(ValueError, match="share a plane"):
+        KN.scatter_round([seg(p), seg(p)])
+    planes = [torch.zeros(8, dtype=torch.int64) for _ in range(9)]
+    with pytest.raises(ValueError, match="at most 8"):
+        KN.scatter_round([seg(x) for x in planes])
+    KN.scatter_round([seg(p), seg(q)])
+    assert int(p[1]) == int(q[1]) == 1
+
+
 # ------------------------------------------------------------ K5 plain
 
 def _tensor_mat(rng, g, n, k, dtype):
@@ -523,3 +602,59 @@ def test_pool_scatter_updates_in_place():
     assert out is buf
     assert torch.equal(buf[4], vals[0]) and torch.equal(buf[1], vals[1])
     assert not buf[[0, 2, 3, 5]].any()
+
+
+@pytest.mark.parametrize("k", [96, 37])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_k5_avg_fused_plain_matches_jax_chain(n, dtype, k):
+    """K5's avg (the wrapper with count weights and totals, on CPU
+    tensors: its plain scale -> sum -> divide chain) against the JAX
+    chain tensor_take_scale -> tensor_reduce(STRAT_SUM) -> tensor_div,
+    the Pallas kernel in interpret mode for f32, and reduce_rows: bit for
+    bit against reduce_rows, and against the JAX twins on subnormal-free
+    columns with a NaN matching any NaN; an odd K included."""
+    from constdb_tpu.crdt import tensor as JT
+    from constdb_tpu_torch.crdt import tensor as T
+    rng = np.random.default_rng(n * 10 + k + (dtype == np.float64))
+    g = 5
+    mat = _tensor_mat(rng, g, n, k, dtype)
+    cnts = rng.integers(1, 9, size=(g, n)).astype(np.int64)
+    order = np.arange(n)
+    with np.errstate(all="ignore"):
+        host = np.stack([JT.reduce_rows(JT.STRAT_AVG, mat[j], cnts[j], order,
+                                        order) for j in range(g)])
+    pool = np.zeros((g * n + 3, k), dtype)
+    rows = rng.permutation(g * n + 3)[: g * n]
+    pool[rows] = mat.reshape(g * n, k)
+    idx = rows.astype(np.int32)
+    cf = cnts.astype(dtype)
+    tot = cf[:, 0].copy()
+    for i in range(1, n):
+        tot = tot + cf[:, i]
+    before = dict(KN.LAUNCHES)
+    port = KN.tensor_take_reduce(_t(pool), _t(idx), dtype(1),
+                                 strat=T.STRAT_AVG, n=n, g=g,
+                                 w=_t(cf.reshape(-1)), tot=_t(tot))
+    assert KN.LAUNCHES == before
+    got = port.numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(host))
+    jwm = JD.tensor_take_scale(jnp.asarray(pool), jnp.asarray(idx),
+                               jnp.asarray(cf), n=n, g=g)
+    jtot = jnp.asarray(tot.reshape(g, 1))
+    refs = [JD.tensor_div(JD.tensor_reduce(jwm, jnp.asarray(cf), dtype(1),
+                                           strat=JT.STRAT_SUM, n=n), jtot)]
+    if dtype == np.float32:
+        refs.append(JD.tensor_div(
+            PD.tensor_reduce(_pad_k(np.asarray(jwm)), jnp.asarray(cf),
+                             dtype(1), strat=JT.STRAT_SUM, n=n,
+                             interpret=True)[:, :k], jtot))
+    sub = lambda a: (a != 0) & (np.abs(a) < np.finfo(dtype).tiny)  # noqa
+    wm = mat * cf[:, :, None]
+    with np.errstate(invalid="ignore"):
+        keep = ~(sub(mat).any(axis=1) | sub(wm).any(axis=1) | sub(host))
+    assert keep.mean() > 0.4
+    for r in refs:
+        r = np.asarray(r)
+        same = (_bits(got) == _bits(r)) | (np.isnan(got) & np.isnan(r))
+        assert same[keep].all()

@@ -13,6 +13,7 @@ tests/test_resident_steady.py, ported:
   * snapshot ingest, then the stream, on one engine;
   * the warm-up gate, host_stale, a micro delete that survives a
     forced-fold bulk round, and the MergeStats transfer deltas;
+  * one fused K3 call and one host-to-device copy per device round;
 and the slice as a whole, small: catch-up, stream, tensor rounds.
 """
 
@@ -27,6 +28,7 @@ from constdb_tpu.store import KeySpace as JaxKeySpace
 from constdb_tpu_torch import convert, workload as W
 from constdb_tpu_torch.engine.cpu import CpuMergeEngine
 from constdb_tpu_torch.engine.cuda import TorchMergeEngine
+from constdb_tpu_torch.ops import kernels as KN
 from constdb_tpu_torch.store.keyspace import KeySpace
 
 NT = JS.NEUTRAL_T
@@ -316,6 +318,74 @@ def test_micro_delete_survives_forced_fold_bulk_round(fold):
         cpu.merge_many(want, [port_batch(b)])
     assert got.canonical() == want.canonical() == ref.canonical()
     # m1 stays dead: del u(5) > add u(3)
+    kid = got.lookup(b"s1")
+    assert [m for m, *_ in got.elem_live(kid)] == [b"m2"]
+
+
+def _record_rounds(monkeypatch):
+    """Spy on the K3 wrapper the engine calls: -> the list of each call's
+    [(segment kind, rows)]."""
+    calls = []
+    orig = KN.scatter_round
+
+    def spy(segs):
+        calls.append([(g.kind, int(g.idx.shape[0])) for g in segs])
+        return orig(segs)
+
+    monkeypatch.setattr(KN, "scatter_round", spy)
+    return calls
+
+
+@pytest.mark.parametrize("deletes", [False, True])
+def test_each_device_round_is_one_fused_scatter_and_one_copy(monkeypatch,
+                                                             deletes):
+    """Every steady device round issues ONE scatter_round call carrying
+    all its scatters (the LWW pairs, the counter base pair when counter
+    deletes arrive, the element del_t max), uploaded in ONE host-to-device
+    copy once the family mirrors exist; the result equals the replay
+    oracle."""
+    batches = W.make_stream_workload(1500, 40, seed=31, batch_frames=64)
+    if deletes:
+        batches = with_counter_deletes(batches, seed=5)
+    calls = _record_rounds(monkeypatch)
+    eng = port_engine()
+    ks = KeySpace()
+    copies = []
+    for b in batches:
+        c0, fams = eng.h2d_copies, set(eng._res)
+        eng.merge_many(ks, [port_batch(b)])
+        if fams == set(eng._res):  # no mirror built this round
+            copies.append(eng.h2d_copies - c0)
+    eng.flush(ks)
+    eng.close()
+    assert len(calls) == eng.dev_rounds_resident == len(batches)
+    assert all(len(c) <= KN.MAX_SEGMENTS for c in calls)
+    kinds = {k for c in calls for k, _ in c}
+    assert KN.PAIR_SRC in kinds and KN.MAX1 in kinds
+    assert (KN.PAIR in kinds) == deletes
+    assert len(copies) >= len(batches) - 3 and set(copies) == {1}
+    assert ks.canonical() == W.replay_oracle(batches).canonical()
+    assert sums(ks) == sums(W.replay_oracle(batches))
+
+
+@pytest.mark.parametrize("fold", ["eager", "cuda"])
+def test_micro_delete_rides_the_fused_round(monkeypatch, fold):
+    """The micro delete of test_micro_delete_survives_forced_fold_bulk_round
+    advances the device del_t as a MAX1 segment of the same launch as the
+    round's add pair, and the member stays dead through the forced-fold
+    bulk round."""
+    calls = _record_rounds(monkeypatch)
+    steps = [_el_batch([(b"m1", 2), (b"m2", 2)], [0, 0], False),
+             _el_batch([(b"m1", 0)], [5], False),
+             _el_batch([(b"m1", 3), (b"m2", 3)], [0, 0], True)]
+    got = KeySpace()
+    eng = port_engine(dense_fold=fold)
+    for b in steps:
+        eng.merge_many(got, [port_batch(b)])
+    eng.flush(got)
+    eng.close()
+    assert [sorted({k for k, _ in c}) for c in calls] == \
+        [[KN.PAIR_SRC], [KN.PAIR_SRC, KN.MAX1]]
     kid = got.lookup(b"s1")
     assert [m for m, *_ in got.elem_live(kid)] == [b"m2"]
 

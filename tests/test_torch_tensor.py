@@ -21,6 +21,7 @@ from constdb_tpu_torch import convert, workload as W
 from constdb_tpu_torch.crdt import tensor as T
 from constdb_tpu_torch.engine.cpu import CpuMergeEngine
 from constdb_tpu_torch.engine.cuda import TorchMergeEngine
+from constdb_tpu_torch.ops import kernels as KN
 from constdb_tpu_torch.store.keyspace import KeySpace
 
 from test_tensor_family import gen_rows, make_batch, payload
@@ -219,4 +220,45 @@ def test_read_cache_keeps_one_entry_per_key_set():
     CpuMergeEngine().merge_many(ref, [port_batch(make_batch(rows, cfg,
                                                             32))])
     assert got[a].tobytes() == ref.tensor_read(ref.lookup(b"t0001")).tobytes()
+    eng.close()
+
+
+@pytest.mark.parametrize("dtype", [0, 1])
+def test_avg_reads_one_fused_reduce_per_group(monkeypatch, dtype):
+    """avg reads make ONE K5 call per group of every read, with the count
+    weights and totals (no separate scale and divide), and stay
+    bit-identical to the host reference."""
+    calls = []
+    orig = KN.tensor_take_reduce
+
+    def spy(*a, **kw):
+        calls.append(kw)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(KN, "tensor_take_reduce", spy)
+    rng = np.random.default_rng(41 + dtype)
+    elems = 37  # an odd width
+    np_dt = np.float64 if dtype else np.float32
+    cfg = JT.pack_config(JT.TensorMeta(JT.STRAT_AVG, dtype, (elems,)))
+    ref, dev = KeySpace(), KeySpace()
+    cpu = CpuMergeEngine()
+    eng = port_engine()
+    u = 1
+    group_reads = 0
+    for _ in range(4):
+        rows, u = gen_rows(rng, 30, 6, 4, elems, u)
+        rows = [(k, nd, uu, c, payload(rng, elems, np_dt).tobytes())
+                for k, nd, uu, c, _p in rows]
+        cpu.merge_many(ref, [port_batch(make_batch(rows, cfg, elems))])
+        eng.merge_many(dev, [port_batch(make_batch(rows, cfg, elems))])
+        kids = range(dev.keys.n)
+        same_reads(eng.tensor_read_many(dev, kids), ref.tensor_read)
+        # the groups this read reduced, from the engine's read cache
+        group_reads += len(
+            eng._tns_read_cache["by_kids"][tuple(kids)]["groups"])
+    assert calls and len(calls) == group_reads
+    assert all(kw["strat"] == T.STRAT_AVG and kw["w"] is not None and
+               kw["tot"] is not None for kw in calls)
+    eng.flush(dev)
+    assert dev.canonical() == ref.canonical()
     eng.close()
