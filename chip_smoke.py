@@ -11,7 +11,17 @@ Phases, one line each; any failure raises and exits non-zero:
   3. kernels   each kernel against its plain PyTorch version on the card,
                bit-equal, at its path's shapes, with CUDA-event median
                times of the kernel, the plain version and (where one
-               exists) a single PyTorch library call.  K3: a fused round
+               exists) a single PyTorch library call.  K2 at phase 5's
+               shapes, [8, 2^20] and [8, 2^16], and at [8, 131072] and
+               [8, 8192], with its one-column floor and a read-flushed
+               (clean L2) time, and untimed on every R instantiation, odd
+               widths and an offset view.  K4 fused with the base
+               subtraction, on uniform random ids and on the engine's
+               layout (8 ascending sweeps over 400k of 1M keys), each
+               beside the subtraction-then-K4 chain, index_add_ with its
+               zero fill and subtraction, a one-row floor and a clean-L2
+               time, and untimed on odd lengths, offset views, ids out of
+               range, the int64 wrap and grouped ids.  K3: a fused round
                with the segment rows of a phase-6 flush (timed against
                the same segments launched one at a time) and two
                one-segment cases, every row outside the ids unchanged;
@@ -23,10 +33,17 @@ Phases, one line each; any failure raises and exits non-zero:
                131072-key chunks, groups of 4R, resident TorchMergeEngine
                with dense_fold="auto", then flush; verified against the
                port's CpuMergeEngine oracle on a ~100k-key subsample; K4
-               must launch.  Its engine and store stay open for phase 6;
+               launched once per counter-sum re-derivation (upload, K4,
+               download: family_secs["sums"]), the store's counter-kid
+               layout logged; after phase 5 its re-derivation runs once
+               more under the profiler: the same sums, with K4, its zero
+               fill and pinned copies only (no plain subtraction, no
+               pageable copy).  Its engine and store stay open for
+               phase 6;
   5. catch-up (device fold)  the aligned-counter shape, groups of R,
-               dense_fold="cuda"; verified the same way; K1 and K2 must
-               launch;
+               dense_fold="cuda"; verified the same way, K4 launched once
+               per re-derivation; K1 and K2 must launch, and the [R, S]
+               of every K2 launch is logged;
   6. steady stream           make_stream_workload(F frames over K keys
                per type prefix) in coalescer flushes of 512 frames through
                phase 4's engine and store (steady path on), a flush after
@@ -53,6 +70,7 @@ Imports torch, numpy and the port only.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -167,6 +185,11 @@ def kernel_phase(dev, seed: int) -> dict:
     def flush_l2():
         scratch.fill_(1)
 
+    def clean_l2():
+        # a 128 MB read also evicts the L2, and leaves no dirty line whose
+        # write-back the timed launch would pay for
+        scratch.sum()
+
     def stack(lo, hi):
         return torch.randint(lo, hi, (R, S), generator=g, dtype=i64,
                              device=dev)
@@ -195,44 +218,163 @@ def kernel_phase(dev, seed: int) -> dict:
         **t, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": err, "shape": [R, S]}
     # K2: values below NEUTRAL_T among ties (the edge where the
-    # reference's XLA twin and its Pallas kernel disagree)
-    ts = with_neutral(stack(0, 16))
-    vals = stack(-1000, 1000)
-    vals[:, 64:128] = NEUTRAL_T - 5 - torch.arange(R, device=dev)[:, None]
-    err = max_abs_err("K2 merge_counters", KN.merge_counters(vals, ts),
-                      D.dense_merge_counters(vals, ts))
-    nbytes = 2 * R * S * 8 + 2 * S * 8
-    ops = 2 * R * S * 2
-    b_ms, b_by = bound_ms(nbytes, ops)
-    t = time_ms({"ms": lambda: KN.merge_counters(vals, ts),
-                 "plain_ms": lambda: D.dense_merge_counters(vals, ts)},
-                flush=flush_l2)
-    recs["merge_counters"] = {
-        **t, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": err, "shape": [R, S]}
-    # K4: 3.2M ids over 1M segments; segment 0 holds int64 extremes whose
-    # sum wraps mod 2^64
-    n, n_seg = 3_200_000, 1 << 20
-    ids = torch.randint(0, n_seg, (n,), generator=g, dtype=torch.int32,
-                        device=dev)
-    sv = torch.randint(-(1 << 40), 1 << 40, (n,), generator=g, dtype=i64,
-                       device=dev)
-    ids[:4] = 0
-    sv[:4] = torch.tensor([(1 << 63) - 1, (1 << 63) - 1, -(1 << 63), 7],
-                          dtype=i64, device=dev)
-    err = max_abs_err("K4 segment_sum", [KN.segment_sum(ids, sv, n_seg)],
-                      [D.segment_sum(ids, sv, n_seg)])
-    ids64 = ids.to(i64)
-    out = torch.zeros(n_seg, dtype=i64, device=dev)
-    nbytes = n * 4 + n * 8 + n_seg * 8
-    b_ms, b_by = bound_ms(nbytes, n)
-    t = time_ms({"ms": lambda: KN.segment_sum(ids, sv, n_seg),
-                 "plain_ms": lambda: D.segment_sum(ids, sv, n_seg),
-                 "library_ms": lambda: out.index_add_(0, ids64, sv)},
-                flush=flush_l2)
-    recs["segment_sum"] = {
-        **t, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-        "shape": [n, n_seg]}
+    # reference's XLA twin and its Pallas kernel disagree), at the
+    # device-fold catch-up's two shapes (phase 5 logs them: its stacks
+    # are padded to a power of two) and at [8, 131072] and [8, 8192]
+    def k2_stacks(rows, cols):
+        ts = torch.randint(0, 16, (rows, cols), generator=g, dtype=i64,
+                           device=dev)
+        m = torch.rand((rows, cols), generator=g, device=dev) < 0.125
+        ts = torch.where(m, torch.full_like(ts, NEUTRAL_T), ts)
+        ts[:, :min(cols, 64)] = NEUTRAL_T
+        vals = torch.randint(-1000, 1000, (rows, cols), generator=g,
+                             dtype=i64, device=dev)
+        vals[:, 64:128] = NEUTRAL_T - 5 - \
+            torch.arange(rows, device=dev)[:, None]
+        if cols >= 2:
+            vals[0, :2] = torch.tensor([(1 << 63) - 1, -(1 << 63)],
+                                       device=dev)
+        return vals, ts
+
+    def k2_check(vals, ts):
+        return max_abs_err("K2 merge_counters", KN.merge_counters(vals, ts),
+                           D.dense_merge_counters(vals, ts))
+
+    cases = []
+    for cols in (1 << 20, 1 << 16, S, 8192):
+        vals, ts = k2_stacks(R, cols)
+        err = k2_check(vals, ts)
+        b_ms, b_by = bound_ms(2 * R * cols * 8 + 2 * cols * 8,
+                              2 * R * cols * 2)
+        fns = {"ms": lambda: KN.merge_counters(vals, ts),
+               "plain_ms": lambda: D.dense_merge_counters(vals, ts)}
+        t = time_ms(fns, flush=flush_l2)
+        t.update(time_ms({"clean_ms": fns["ms"]}, flush=clean_l2,
+                         warmup_s=0.3))
+        cases.append({**t, "bound_ms": b_ms, "bound_by": b_by,
+                      "max_abs_err": err, "shape": [R, cols]})
+    # the floor of one launch: [8, 1] (launch and load latency only)
+    v1, t1 = k2_stacks(R, 1)
+    floor = time_ms({"floor_ms": lambda: KN.merge_counters(v1, t1)},
+                    flush=flush_l2, warmup_s=0.3)
+    for c in cases:
+        c.update(floor)
+    # untimed: every R instantiation the catch-up could take and the
+    # looped one, odd widths (W = 1), an even width (W = 2, looped R)
+    # and a stack one element into its storage (W = 1 on an even width)
+    coverage = []
+    for rows in (1, 2, 3, 5, 8, 9, 32):
+        for cols in (1, 7, 8190, 131071):
+            k2_check(*k2_stacks(rows, cols))
+            coverage.append([rows, cols])
+    vals, ts = k2_stacks(R, 8190)
+    flat = [torch.empty(R * 8190 + 1, dtype=i64, device=dev)
+            for _ in range(2)]
+    views = []
+    for f, x in zip(flat, (vals, ts)):
+        f[1:] = x.reshape(-1)
+        views.append(f[1:].view(R, 8190))
+    assert views[0].data_ptr() % 16 == 8
+    k2_check(*views)
+    coverage.append([R, 8190, "offset 1"])
+    recs["merge_counters"] = {**cases[0], "library_ms": None,
+                              "cases": cases, "coverage": coverage}
+
+    # K4 fused with the base subtraction, on two id layouts: (a) uniform
+    # random ids over 2^20 segments (each warp's atomics scatter), (b) the
+    # engine's: R = 8 ascending sweeps over the 400k counter keys of 1M
+    # keys (phase 4 logs its store's layout)
+    n = 3_200_000
+
+    def k4_words(m):
+        return tuple(torch.randint(-(1 << 40), 1 << 40, (m,), generator=g,
+                                   dtype=i64, device=dev) for _ in range(2))
+
+    def k4_check(ids, sv, n_seg, base=None):
+        return max_abs_err(
+            "K4 segment_sum", [KN.segment_sum(ids, sv, n_seg, base=base)],
+            [D.segment_sum(ids, sv, n_seg, base=base)])
+
+    cases = []
+    for layout, n_seg in (("random", 1 << 20), ("sweep", 1_000_000)):
+        if layout == "random":
+            ids = torch.randint(0, n_seg, (n,), generator=g,
+                                dtype=torch.int32, device=dev)
+        else:
+            ids = torch.arange(n_seg * 2 // 5, dtype=torch.int32,
+                               device=dev).repeat(R)
+        sv, base = k4_words(n)
+        err = max(k4_check(ids, sv, n_seg, base), k4_check(ids, sv, n_seg))
+        b_ms, b_by = bound_ms(n * (4 + 8 + 8) + n_seg * 8, 2 * n)
+
+        def chain(ids=ids, sv=sv, base=base, n_seg=n_seg):
+            # the unfused main path: a plain subtraction, then K4
+            return KN.segment_sum(ids, sv - base, n_seg)
+
+        def library(ids=ids, sv=sv, base=base, n_seg=n_seg):
+            # the same function in PyTorch calls, with its zero fill
+            return torch.zeros(n_seg, dtype=i64, device=dev).index_add_(
+                0, ids, sv - base)
+
+        if not torch.equal(library(), KN.segment_sum(ids, sv, n_seg,
+                                                     base=base)):
+            raise AssertionError("K4 differs from index_add_")
+        fns = {"ms": lambda ids=ids, sv=sv, base=base, n_seg=n_seg:
+               KN.segment_sum(ids, sv, n_seg, base=base),
+               "chain_ms": chain, "library_ms": library,
+               "plain_ms": lambda ids=ids, sv=sv, base=base, n_seg=n_seg:
+               D.segment_sum(ids, sv, n_seg, base=base)}
+        t = time_ms(fns, flush=flush_l2)
+        t.update(time_ms({"clean_ms": fns["ms"]}, flush=clean_l2,
+                         warmup_s=0.3))
+        cases.append({**t, "bound_ms": b_ms, "bound_by": b_by,
+                      "max_abs_err": err, "shape": [n, n_seg],
+                      "case": f"{layout} ids"})
+    # the floor of one launch: one row (launch, fill and latency only)
+    ids1 = torch.zeros(1, dtype=torch.int32, device=dev)
+    sv1, base1 = k4_words(1)
+    floor = time_ms({"floor_ms": lambda: KN.segment_sum(ids1, sv1, 1 << 20,
+                                                        base=base1)},
+                    flush=flush_l2, warmup_s=0.3)
+    for c in cases:
+        c.update(floor)
+    # untimed: odd lengths (scalar head and tail, n shorter than a
+    # vector), views one element into their storage (a scalar head, or
+    # the scalar variant when ids and words disagree), ids out of range,
+    # the int64 wrap in segment 0, grouped ids (runs fold in registers),
+    # base given and absent
+    coverage = []
+    for m in (1, 3, 31, 33, 4097):
+        for layout in ("random", "grouped"):
+            ids = torch.randint(0, 97, (m,), generator=g, dtype=torch.int32,
+                                device=dev)
+            if layout == "grouped":
+                ids = ids.sort().values
+            sv, base = k4_words(m)
+            if m >= 4:
+                ids[:4] = 0
+                sv[:4] = torch.tensor([(1 << 63) - 1, (1 << 63) - 1,
+                                       -(1 << 63), 7], device=dev)
+                base[:4] = torch.tensor([-(1 << 63), -1, 1, (1 << 63) - 1],
+                                        device=dev)
+            if m >= 31:
+                ids[5::9] = -3
+                ids[6::9] = 97 + ids[6::9]
+            k4_check(ids, sv, 97, base)
+            k4_check(ids, sv, 97)
+            coverage.append([m, layout])
+    m = 4097
+    src = (torch.randint(0, 97, (m,), generator=g, dtype=torch.int32,
+                         device=dev), *k4_words(m))
+    for offs in ((1, 1, 1), (1, 0, 0), (0, 1, 0), (0, 0, 1), (2, 0, 0)):
+        views = []
+        for x, o in zip(src, offs):
+            f = torch.empty(m + o, dtype=x.dtype, device=dev)
+            f[o:] = x
+            views.append(f[o:])
+        k4_check(*views[:2], 97, views[2])
+        coverage.append([m, f"storage offsets {list(offs)}"])
+    recs["segment_sum"] = {**cases[1], "cases": cases, "coverage": coverage}
     del scratch
     return recs
 
@@ -804,6 +946,7 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
             fold: str, aligned: bool, label: str):
     """One streamed catch-up through TorchMergeEngine, verified against
     the CPU oracle; -> (launches and timings, engine, store, batches)."""
+    import numpy as np
     import torch
 
     from constdb_tpu_torch import workload as W
@@ -823,14 +966,51 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
     KN.reset_launches()
-    t0 = time.perf_counter()
-    for i in range(0, len(chunks), group):
-        eng.merge_many(store, chunks[i:i + group])
-    eng.flush(store)
-    if on_card:
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # the [R, S] of every K2 launch (the engine looks the wrapper up on
+    # the module at each call)
+    k2_shapes = []
+    real_k2 = KN.merge_counters
+
+    def k2_logged(vals, ts):
+        k2_shapes.append(list(vals.shape))
+        return real_k2(vals, ts)
+
+    KN.merge_counters = k2_logged
+    # counter-sum re-derivations (one per whole-plane counter flush)
+    rederive = []
+    real_sums = eng._recompute_sums
+    eng._recompute_sums = lambda st: rederive.append(1) or real_sums(st)
+    # host seconds of Python's cyclic garbage collector inside the merge
+    # loop and inside the flush: a full collection that lands in a span
+    # scans every live object of the process
+    gc_s = {"merge": 0.0, "flush": 0.0}
+    span = ["merge", 0.0]
+
+    def gc_timer(phase, _info):
+        if phase == "start":
+            span[1] = time.perf_counter()
+        else:
+            gc_s[span[0]] += time.perf_counter() - span[1]
+
+    gc.callbacks.append(gc_timer)
+    try:
+        t0 = time.perf_counter()
+        for i in range(0, len(chunks), group):
+            eng.merge_many(store, chunks[i:i + group])
+        span[0] = "flush"
+        eng.flush(store)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(gc_timer)
+        KN.merge_counters = real_k2
+        del eng._recompute_sums
     launches = dict(KN.LAUNCHES)
+    if on_card and not 1 <= launches["segment_sum"] == len(rederive):
+        raise AssertionError(
+            f"{label}: K4 launched {launches['segment_sum']} times in "
+            f"{len(rederive)} counter-sum re-derivations")
     t0 = time.perf_counter()
     checked, mismatches = W.verify_store(store, batches, n_keys)
     t_ver = time.perf_counter() - t0
@@ -842,14 +1022,62 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
            "mismatches": mismatches, "gen_s": t_gen, "verify_s": t_ver,
            "h2d_bytes": eng.bytes_h2d, "d2h_bytes": eng.bytes_d2h,
            "family_secs": {k: round(v, 3) for k, v in eng.family_secs.items()},
+           "sums_s": eng.family_secs["sums"], "gc_s": gc_s,
+           "k2_shapes": k2_shapes,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)
            if on_card else None}
     log(f"{label}: {n_keys} keys x {n_rep} replicas, {len(chunks)} chunks "
         f"in groups of {group}, dense_fold={fold}: {wall:.3f} s "
         f"({out['keys_per_s']:.0f} keys/s), folds={eng.folds}, "
-        f"launches={launches}, verified {checked} keys, 0 mismatches "
+        f"launches={launches}, flush {eng.family_secs['flush']:.4f} s of "
+        f"which sums (upload, K4, download) {out['sums_s']:.4f} s in "
+        f"{len(rederive)} re-derivation(s), one K4 launch each, garbage "
+        f"collection {gc_s['merge']:.4f} s in the merges and "
+        f"{gc_s['flush']:.4f} s in the flush, "
+        f"verified {checked} keys, 0 mismatches "
         f"(gen {t_gen:.1f} s, verify {t_ver:.1f} s) {json.dumps(out)}")
+    shapes = sorted({tuple(x) for x in k2_shapes})
+    log(f"{label}: K2 launches {len(k2_shapes)}, [R, S] of each: "
+        f"{k2_shapes}; distinct {[list(x) for x in shapes]}")
+    kid = store.cnt.kid[:store.cnt.n]
+    d = np.diff(kid)
+    log(f"{label}: cnt.kid layout: {len(kid)} counter slots over "
+        f"{store.keys.n} keys, adjacent +1 share {float((d == 1).mean())}, "
+        f"adjacent equal share {float((d == 0).mean())}, descents "
+        f"{int((d < 0).sum())} (R = {n_rep} ascending sweeps)")
     return out, eng, store, batches
+
+
+# device events a CUDA counter-sum re-derivation may run: K4, its output's
+# zero fill, the pinned upload of the slot kids and the pinned download of
+# the sums
+SUMS_EVENTS = ("segment_sum_kernel", "FillFunctor", "Memset",
+               "Memcpy HtoD (Pinned -> Device)",
+               "Memcpy DtoH (Device -> Pinned)")
+
+
+def sums_profile(eng, store, label: str) -> None:
+    """Run the engine's counter-sum re-derivation once more under the
+    profiler: it must reproduce the sums and run K4 with no plain
+    subtraction kernel and no pageable copy."""
+    from constdb_tpu_torch.ops import kernels as KN
+    nk = store.keys.n
+    before = store.keys.cnt_sum[:nk].copy()
+    l0 = KN.LAUNCHES["segment_sum"]
+    prof = profiled(lambda: eng._recompute_sums(store))
+    names = prof.pop("device_names")
+    if not (store.keys.cnt_sum[:nk] == before).all():
+        raise AssertionError(f"{label}: a second re-derivation changed the "
+                             "counter sums")
+    other = [k for k in names if not any(e in k for e in SUMS_EVENTS)]
+    if KN.LAUNCHES["segment_sum"] != l0 + 1 or other or \
+            not any("segment_sum_kernel" in k for k in names) or \
+            not any("Memcpy DtoH (Device -> Pinned)" in k for k in names):
+        raise AssertionError(f"{label}: the profiled counter-sum "
+                             f"re-derivation ran {names}")
+    log(f"{label}: profiled counter-sum re-derivation: device events "
+        f"{names}; no plain subtraction, no pageable copy "
+        f"{json.dumps(prof)}")
 
 
 def main() -> int:
@@ -887,8 +1115,8 @@ def main() -> int:
     log(f"kernels: SM clock, max SM clock after timing: {sm_clock()}")
     for name, r in recs.items():
         for c in r.get("cases", [r]):
-            lib = "n/a" if r["library_ms"] is None \
-                else f"{r['library_ms']:.4f}"
+            lib = c.get("library_ms", r["library_ms"])
+            lib = "n/a" if lib is None else f"{lib:.4f}"
             what = " ".join(str(c[k]) for k in ("case", "strategy", "dtype")
                             if k in c)
             more = "".join(f", {k[:-3]} {c[k]:.4f} ms" for k in
@@ -903,8 +1131,6 @@ def main() -> int:
     auto, eng, store, catch_batches = catchup(
         dev, args.keys, rep, args.seed, 4 * rep, "auto", False,
         "catch-up (auto)")
-    if not auto["launches"]["segment_sum"]:
-        raise AssertionError("catch-up (auto) did not launch K4 segment_sum")
     fold, eng2, _store2, _b2 = catchup(dev, args.keys, rep, args.seed, rep,
                                        "cuda", True, "catch-up (device fold)")
     eng2.close()
@@ -912,6 +1138,10 @@ def main() -> int:
     for k in ("merge_elems", "merge_counters"):
         if not fold["launches"][k]:
             raise AssertionError(f"catch-up (device fold) did not launch {k}")
+    # after both timed catch-ups, so no profiler run precedes them; phase
+    # 4's engine only: a profiler run around phase 5's engine once saw no
+    # device events at all
+    sums_profile(eng, store, "catch-up (auto)")
     stream = stream_phase(dev, eng, store, catch_batches, args.keys,
                           args.frames, args.stream_keys, args.seed)
     del eng, store, catch_batches

@@ -237,11 +237,13 @@ class TorchMergeEngine:
         # stale-mirror rebuilds per family (op writes between rounds)
         self.mirror_rebuilds = dict.fromkeys(FAMILIES, 0)
         # cumulative host seconds per family on the critical path
-        # (stage-wait + dispatch); `flush` includes its downloads, `host`
-        # the whole-round host fallback and `micro` the steady rounds.
+        # (stage-wait + dispatch); `flush` includes its downloads and
+        # `sums` (the device counter-sum re-derivation), `host` the
+        # whole-round host fallback and `micro` the steady rounds.
         # stage_secs: background staging time.
         self.family_secs = {"env": 0.0, "reg": 0.0, "cnt": 0.0, "el": 0.0,
-                            "flush": 0.0, "host": 0.0, "micro": 0.0}
+                            "flush": 0.0, "sums": 0.0, "host": 0.0,
+                            "micro": 0.0}
         self.stage_secs = {"env": 0.0, "reg": 0.0, "cnt": 0.0, "el": 0.0}
         if pipeline is None:
             pipeline = env_flag("CONSTDB_TORCH_PIPELINE", True)
@@ -271,8 +273,9 @@ class TorchMergeEngine:
         self.bytes_h2d = 0
         self.bytes_d2h = 0
         self.h2d_copies = 0
-        # pinned staging ring of the steady rounds' packed uploads: a slot
-        # is rewritten only after the event recorded behind its last copy
+        # pinned staging ring of the steady rounds' packed uploads (and of
+        # the counter sums' slot kids): a slot is rewritten only after the
+        # event recorded behind its last copy
         self._ring = [{"buf": None, "ev": None} for _ in range(STAGE_RING)]
         self._ring_i = 0
         self._res: dict[str, dict] = {}   # fam -> {cols, n, cap, ...}
@@ -1287,10 +1290,14 @@ class TorchMergeEngine:
     def _recompute_sums(self, store: KeySpace) -> None:
         """Counter-sum re-derivation after a whole-plane cnt flush.  With
         the CUDA fold backend the sum runs ON DEVICE over the resident
-        slot contributions (K4 segment_sum; slot kids upload as int32 and
-        only the [n_keys] sums download); otherwise the host pass.  Both
-        are exact int64, bit-identical to KeySpace.recompute_counter_sums.
-        K4 has no segment cap: it runs for any key count."""
+        slot columns: one K4 segment_sum launch computes val - base per
+        slot and sums it per key (no separate subtraction); the slot kids
+        upload as int32 through the pinned staging ring, and the [n_keys]
+        sums download into pinned memory behind an event.
+        Otherwise the host pass.  Both are exact int64, bit-identical to
+        KeySpace.recompute_counter_sums.  K4 has no segment cap: it runs
+        for any key count.  Timed under family_secs["sums"] (a part of
+        "flush")."""
         res = self._res.get("cnt")
         n = store.cnt.n
         nk = store.keys.n
@@ -1298,11 +1305,19 @@ class TorchMergeEngine:
                 and res["n"] == n and n and nk):
             store.recompute_counter_sums()
             return
+        t0 = time.perf_counter()
         cols = res["cols"]
-        ids = self._h2d(store.cnt.kid[:n].astype(_I32))
-        contrib = cols["val"][:n] - cols["base"][:n]
-        sums = KN.segment_sum(ids, contrib, nk)
-        store.keys.cnt_sum[:nk] = self._get(sums)
+        _, (ids,) = self._h2d_packed([], [store.cnt.kid[:n]])
+        sums = KN.segment_sum(ids, cols["val"][:n], nk,
+                              base=cols["base"][:n])
+        h = self._start_get(sums)
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            ev.synchronize()
+        self.bytes_d2h += h.numel() * h.element_size()
+        store.keys.cnt_sum[:nk] = h.numpy()
+        self.family_secs["sums"] += time.perf_counter() - t0
 
     # ---------------------------------------------------- tensor registers
     # The tensor-valued register family (crdt/tensor.py): contributor slot

@@ -64,11 +64,20 @@ def dense_max(cols):
     return cols.amax(dim=0)
 
 
-def segment_sum(ids, vals, n_seg: int):
-    """Per-segment int64 sums over unsorted segment ids, exact mod 2^64
-    (counter-sum re-derivation: ids = slot kid, vals = val - base)."""
+def segment_sum(ids, vals, n_seg: int, base=None):
+    """Per-segment int64 sums of `vals - base` (`vals` alone when `base`
+    is None) over unsorted segment ids, exact mod 2^64; ids outside
+    [0, n_seg) are skipped (counter-sum re-derivation: ids = slot kid,
+    vals = val, base = base)."""
+    ids = ids.to(_I64)
+    vals = vals.to(_I64)
+    if base is not None:
+        vals = vals - base.to(_I64)   # int64 wraps: two's complement
+    keep = (ids >= 0) & (ids < n_seg)
+    if not bool(keep.all()):
+        ids, vals = ids[keep], vals[keep]
     out = torch.zeros(n_seg, dtype=_I64, device=vals.device)
-    return out.index_add_(0, ids.to(_I64), vals.to(_I64))
+    return out.index_add_(0, ids, vals)
 
 
 # ----------------------------------------------------- tensor registers

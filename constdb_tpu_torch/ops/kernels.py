@@ -12,6 +12,8 @@ K4) and on the steady state (K3, K5):
                         launch (`scatter_pair_src` is its one-segment
                         case)
   * K4 `segment_sum`    (csrc/segment_sum.cu) <- pallas_dense.segment_sum
+                        with the engine's `val - base` in front of it
+                        fused (`base` optional)
   * K5 `tensor_take_reduce` (csrc/tensor_reduce.cu)
                         <- pallas_dense.tensor_reduce
 
@@ -72,8 +74,9 @@ _SIGNATURES = {
     "constdb_merge_elems": [_P, _P, _P, ctypes.c_int, ctypes.c_int64,
                             _P, _P, _P, _P, _P],
     "constdb_merge_counters": [_P, _P, ctypes.c_int, ctypes.c_int64,
-                               _P, _P, _P],
-    "constdb_segment_sum": [_P, _P, ctypes.c_int64, ctypes.c_int64, _P, _P],
+                               ctypes.c_int, _P, _P, _P],
+    "constdb_segment_sum": [_P, _P, _P, ctypes.c_int64, ctypes.c_int64,
+                            ctypes.c_int64, _P, _P],
     "constdb_scatter_round": [_P, _P],
     "constdb_tensor_take_reduce": [_P, _P, _P, _P, ctypes.c_int64,
                                    ctypes.c_int, ctypes.c_int64,
@@ -248,29 +251,51 @@ def merge_counters(vals: torch.Tensor, ts: torch.Tensor):
     if cols:
         lib = _lib("merge_fold")
         rc = lib.constdb_merge_counters(
-            vals.data_ptr(), ts.data_ptr(), rows, cols, o_val.data_ptr(),
-            o_t.data_ptr(), _stream(vals))
+            vals.data_ptr(), ts.data_ptr(), rows, cols,
+            _vec_width(vals, ts, o_val, o_t),
+            o_val.data_ptr(), o_t.data_ptr(), _stream(vals))
         _check_rc(lib, "merge_counters", rc)
         LAUNCHES["merge_counters"] += 1
     return o_val, o_t
 
 
-def segment_sum(ids: torch.Tensor, vals: torch.Tensor,
-                n_seg: int) -> torch.Tensor:
-    """K4: per-segment int64 sums of `vals` over unsorted int32 `ids` in
-    [0, n_seg), exact mod 2^64 -> [n_seg] int64."""
-    if _on_cpu(ids, vals):
-        return D.segment_sum(ids, vals, n_seg)
+SUM_ITEMS = 4   # csrc/segment_sum.cu kItems: rows per vector
+
+
+def _sum_head(n: int, ids: torch.Tensor, *words: torch.Tensor) -> int:
+    """K4's width: the number of leading rows (< SUM_ITEMS) after which
+    the ids and every int64 plane are 16-byte aligned, or -1 (the scalar
+    variant) when no such head exists or n is too short for a vector."""
+    for head in range(SUM_ITEMS):
+        if n >= head + SUM_ITEMS and \
+                (ids.data_ptr() + 4 * head) % 16 == 0 and \
+                all((w.data_ptr() + 8 * head) % 16 == 0 for w in words):
+            return head
+    return -1
+
+
+def segment_sum(ids: torch.Tensor, vals: torch.Tensor, n_seg: int,
+                base: torch.Tensor | None = None) -> torch.Tensor:
+    """K4: per-segment int64 sums of `vals - base` (`vals` alone when
+    `base` is None) over unsorted int32 `ids` in [0, n_seg), exact mod
+    2^64 -> [n_seg] int64; ids outside the range are skipped."""
+    words = (vals,) if base is None else (vals, base)
+    # the contract holds on every device, the plain version's too
     _check("segment_sum", ids, dtype=torch.int32)
-    _check("segment_sum", vals)
-    if ids.dim() != 1 or ids.shape != vals.shape:
-        raise ValueError("segment_sum: ids and vals must be equal-length 1-D")
+    _check("segment_sum", *words)
+    if ids.dim() != 1 or any(w.shape != ids.shape for w in words):
+        raise ValueError("segment_sum: ids, vals and base must be "
+                         "equal-length 1-D")
+    if _on_cpu(ids, *words):
+        return D.segment_sum(ids, vals, n_seg, base=base)
     out = torch.zeros(n_seg, dtype=torch.int64, device=vals.device)
     n = int(ids.shape[0])
     if n and n_seg:
         lib = _lib("segment_sum")
-        rc = lib.constdb_segment_sum(ids.data_ptr(), vals.data_ptr(), n,
-                                     n_seg, out.data_ptr(), _stream(vals))
+        rc = lib.constdb_segment_sum(
+            ids.data_ptr(), vals.data_ptr(),
+            None if base is None else base.data_ptr(), n,
+            _sum_head(n, ids, *words), n_seg, out.data_ptr(), _stream(vals))
         _check_rc(lib, "segment_sum", rc)
         LAUNCHES["segment_sum"] += 1
     return out
@@ -361,8 +386,8 @@ def scatter_pair_src(p: torch.Tensor, s: torch.Tensor, src: torch.Tensor,
 
 
 def _vec_width(*tensors: torch.Tensor) -> int:
-    """Columns per access for K5: the widest of 16, 8 or 4 bytes that
-    divides every row and every pointer's alignment."""
+    """Columns per access for K2 and K5: the widest of 16, 8 or 4 bytes
+    that divides every row and every pointer's alignment."""
     esz = tensors[0].element_size()
     kp = int(tensors[0].shape[-1])
     for nbytes in (16, 8, 4):

@@ -393,3 +393,47 @@ def test_pool_bounds_flush_between_rounds():
         eng.merge_many(PortKeySpace(), [port_batch(b) for b in steps[0]])
     assert eng._pool_size == 0
     eng.close()
+
+
+@pytest.mark.parametrize("name", ["catchup-plain", "catchup-aligned-counters",
+                                  "overlap-0"])
+def test_recompute_sums_passes_base_to_k4(name, monkeypatch):
+    """With the cuda fold backend on the CPU device (K4's wrapper takes
+    its plain branch), the whole-plane counter flush hands the resident
+    val and base columns to one segment_sum call, with no precomputed
+    contribution, and the sums equal the reference CpuMergeEngine's."""
+    import torch
+
+    from constdb_tpu_torch.ops import kernels as KN
+    cpu_can, cpu_sums, _, _ = _run_ref(name)
+    calls = []
+    real = KN.segment_sum
+
+    def spy(ids, vals, n_seg, base=None):
+        calls.append((ids, vals, n_seg, base))
+        return real(ids, vals, n_seg, base=base)
+
+    monkeypatch.setattr(KN, "segment_sum", spy)
+    fn, seed = WORKLOADS[name]
+    init, steps, gc = fn(seed)
+    eng = TorchMergeEngine(resident=True, dense_fold="cuda", device="cpu")
+    ks = PortKeySpace() if init is None else \
+        convert.keyspace_from_dict(keyspace_dict(init))
+    for group in steps:
+        eng.merge_many(ks, [port_batch(b) for b in group])
+    cols = eng._res["cnt"]["cols"]
+    eng.flush(ks)
+    if gc is not None:
+        ks.gc(gc)
+    eng.close()
+    assert len(calls) == 1
+    ids, vals, n_seg, base = calls[0]
+    n = ks.cnt.n
+    assert ids.dtype == torch.int32 and n_seg == ks.keys.n
+    assert base is not None
+    assert vals.data_ptr() == cols["val"].data_ptr()
+    assert base.data_ptr() == cols["base"].data_ptr()
+    assert vals.shape == base.shape == (n,)
+    assert eng.family_secs["sums"] > 0
+    assert ks.canonical() == cpu_can
+    assert sums(ks) == cpu_sums

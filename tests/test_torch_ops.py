@@ -4,9 +4,10 @@ Every port function runs on the CPU here, on the same numpy inputs as its
 JAX counterpart, and must agree EXACTLY (all results are int64 words or
 flags).  The plain versions of the CUDA kernels (K1 merge_elems, K2
 merge_counters, K4 segment_sum) are held against the reference's Pallas
-kernels in interpret mode and its XLA twins; K4 against the XLA twin and
-numpy.add.at (the reference's Pallas segment_sum does not trace on this
-JAX).  The kernels themselves are held against these plain versions on
+kernels in interpret mode and its XLA twins; K4 (with and without its
+fused base subtraction) against the XLA twin of `segment_sum(ids, val -
+base)` and numpy.add.at (the reference's Pallas segment_sum does not
+trace on this JAX).  The kernels themselves are held against these plain versions on
 the card by chip_smoke.py.
 """
 
@@ -220,7 +221,8 @@ def test_k1_merge_elems_plain_matches_pallas_and_xla(R, S_):
     assert KN.LAUNCHES == before
 
 
-@pytest.mark.parametrize("R,S_", [(1, 17), (3, 300), (8, 129)])
+@pytest.mark.parametrize("R,S_", [(1, 17), (3, 300), (8, 129), (9, 7),
+                                  (32, 64)])
 def test_k2_merge_counters_plain_matches_pallas_and_xla(R, S_):
     rng = np.random.default_rng(R * 77 + S_)
     ts = _stack(rng, R, S_, 0, 4)
@@ -255,24 +257,120 @@ def test_k2_values_below_neutral_follow_pallas_and_semantics():
 
 # ------------------------------------------------------------ K4 plain
 
-@pytest.mark.parametrize("n,n_seg", [(1, 1), (33, 7), (1000, 100),
-                                     (4096, 3000)])
-def test_k4_segment_sum_plain_matches_xla_and_numpy(n, n_seg):
+# (n, n_seg, layout, with_base): the first four cases keep their ids.
+# "sweep" is the engine's layout (R ascending sweeps over the counter
+# keys, the first of n_seg keys), "grouped" sorted ids with runs of equal
+# ids, "oob" ids outside [0, n_seg) mixed in (skipped), "view" inputs
+# that start one element into their storage
+K4_CASES = [(1, 1, "random", False), (33, 7, "random", False),
+            (1000, 100, "random", False), (4096, 3000, "random", False),
+            (1, 1, "random", True), (33, 7, "random", True),
+            (4096, 3000, "random", True), (4096, 3000, "sweep", False),
+            (8 * 400, 1000, "sweep", True), (4097, 300, "grouped", True),
+            (1000, 100, "oob", True), (31, 9, "view", True)]
+K4_IDS = [f"{n}-{k}" if (lay, b) == ("random", False) else
+          f"{lay}-{'base' if b else 'nobase'}-{n}-{k}"
+          for n, k, lay, b in K4_CASES]
+
+
+def _k4_inputs(n, n_seg, layout, with_base):
     rng = np.random.default_rng(n + n_seg)
-    ids = rng.integers(0, n_seg, n).astype(np.int32)
+    if layout == "sweep":
+        keys = n_seg * 2 // 5
+        ids = np.tile(np.arange(keys), -(-n // keys))[:n].astype(np.int32)
+    elif layout == "grouped":
+        ids = np.sort(rng.integers(0, n_seg, n)).astype(np.int32)
+    else:
+        ids = rng.integers(0, n_seg, n).astype(np.int32)
+    if layout == "oob":
+        ids[::7] = -1 - np.arange(len(ids[::7]))
+        ids[3::7] = n_seg + np.arange(len(ids[3::7]))
     vals = rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64)
+    base = rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64) \
+        if with_base else None
     if n >= 4:
-        # extremes in one segment: the exact sum wraps mod 2^64
+        # extremes in one segment: the exact sum wraps mod 2^64, and so
+        # does val - base
         ids[:4] = 0
         vals[:4] = (I64_MAX, I64_MAX, I64_MIN, 7)
+        if with_base:
+            base[:4] = (I64_MIN, -1, 1, I64_MAX)
+    return ids, vals, base
+
+
+def _offset(x):
+    """A copy of x that starts one element into its storage."""
+    t = torch.empty(len(x) + 1, dtype=torch.from_numpy(x).dtype)
+    t[1:] = torch.from_numpy(x)
+    return t[1:]
+
+
+@pytest.mark.parametrize("n,n_seg,layout,with_base", K4_CASES, ids=K4_IDS)
+def test_k4_segment_sum_plain_matches_xla_and_numpy(n, n_seg, layout,
+                                                    with_base):
+    """K4's plain version, with and without the fused base subtraction,
+    against the reference's XLA segment_sum of vals - base and
+    numpy.add.at.  Ids outside [0, n_seg) are skipped; the reference
+    only ever sees in-range ids (it would wrap a negative one)."""
+    ids, vals, base = _k4_inputs(n, n_seg, layout, with_base)
+    with np.errstate(over="ignore"):
+        contrib = vals - base if with_base else vals
+    keep = (ids >= 0) & (ids < n_seg)
     want = np.zeros(n_seg, np.int64)
     with np.errstate(over="ignore"):
-        np.add.at(want, ids, vals)
-    port = TD.segment_sum(_t(ids), _t(vals), n_seg)
+        np.add.at(want, ids[keep], contrib[keep])
+    mk = _offset if layout == "view" else _t
+    t_ids, t_vals = mk(ids), mk(vals)
+    t_base = None if base is None else mk(base)
+    if layout == "view":
+        assert t_vals.storage_offset() == 1 and t_vals.is_contiguous()
+    port = TD.segment_sum(t_ids, t_vals, n_seg, base=t_base)
     _same(port, want)
-    _same(port, JD.segment_sum(jnp.asarray(ids), jnp.asarray(vals),
-                               n_seg=n_seg))
-    _same(KN.segment_sum(_t(ids), _t(vals), n_seg), want)
+    _same(port, JD.segment_sum(jnp.asarray(ids[keep]),
+                               jnp.asarray(contrib[keep]), n_seg=n_seg))
+    # the wrapper takes the plain version for CPU tensors, uncounted
+    before = dict(KN.LAUNCHES)
+    _same(KN.segment_sum(t_ids, t_vals, n_seg, base=t_base), want)
+    assert KN.LAUNCHES == before
+
+
+@pytest.mark.parametrize("offs,n,head", [
+    ((0, 0, 0), 8, 0), ((1, 1, 1), 8, 3), ((2, 0, 0), 8, 2),
+    ((1, 0, 0), 8, -1), ((0, 1, 0), 8, -1), ((0, 0, 1), 8, -1),
+    ((3, 1, 1), 8, 1), ((1, 1, 1), 6, -1), ((0, 0, 0), 3, -1)])
+def test_k4_width_follows_alignment(offs, n, head):
+    """K4's vector body starts at the first row where the ids (4 bytes)
+    and both int64 planes are 16-byte aligned; without one (or with too
+    few rows for a vector) the scalar variant runs."""
+    full = [torch.zeros(n + 8, dtype=dt)
+            for dt in (torch.int32, torch.int64, torch.int64)]
+    assert all(t.data_ptr() % 16 == 0 for t in full)
+    ids, vals, base = (t[o:o + n] for t, o in zip(full, offs))
+    assert KN._sum_head(n, ids, vals, base) == head
+    if offs[2] == 0:
+        assert KN._sum_head(n, ids, vals) == KN._sum_head(n, ids, vals, base)
+
+
+@pytest.mark.parametrize("bad", ["short_base", "int32_base", "int64_ids",
+                                 "short_vals", "2d"])
+def test_k4_wrapper_contract(bad):
+    """The wrapper checks dtypes and equal lengths on every device."""
+    ids = torch.zeros(8, dtype=torch.int32)
+    vals = torch.ones(8, dtype=torch.int64)
+    base = torch.ones(8, dtype=torch.int64)
+    err = ValueError
+    if bad == "short_base":
+        base = base[:7]
+    elif bad == "int32_base":
+        base, err = base.to(torch.int32), TypeError
+    elif bad == "int64_ids":
+        ids, err = ids.to(torch.int64), TypeError
+    elif bad == "short_vals":
+        vals = vals[:5]
+    else:
+        ids, vals, base = (t.reshape(2, 4) for t in (ids, vals, base))
+    with pytest.raises(err):
+        KN.segment_sum(ids, vals, 4, base=base)
 
 
 def test_dense_max_matches_xla():
