@@ -11,7 +11,14 @@ Phases, one line each; any failure raises and exits non-zero:
   3. kernels   each kernel against its plain PyTorch version on the card,
                bit-equal, at its path's shapes, with CUDA-event median
                times of the kernel, the plain version and (where one
-               exists) a single PyTorch library call.  K2 at phase 5's
+               exists) a single PyTorch library call.  K1 fused with
+               its apply (fold_apply) at phase 5's own fold widths
+               (workload.fold_widths), elements and registers, each
+               beside the chain the engine ran before (fold-only K1,
+               then the plain bulk op), with its one-column floor and a
+               read-flushed time, and untimed on every R instantiation,
+               odd widths, offset views, ids beyond the state, absent
+               columns, ties and its fold-only mode.  K2 at phase 5's
                shapes, [8, 2^20] and [8, 2^16], and at [8, 131072] and
                [8, 8192], with its one-column floor and a read-flushed
                (clean L2) time, and untimed on every R instantiation, odd
@@ -42,8 +49,11 @@ Phases, one line each; any failure raises and exits non-zero:
                phase 6;
   5. catch-up (device fold)  the aligned-counter shape, groups of R,
                dense_fold="cuda"; verified the same way, K4 launched once
-               per re-derivation; K1 and K2 must launch, and the [R, S]
-               of every K2 launch is logged;
+               per re-derivation; K1 and K2 must launch, the [R, S] of
+               every K2 launch and the [R, S] and variant of every K1
+               launch are logged, K1's must be phase 3's, and each
+               register and element fold must launch K1 once and call
+               nothing of ops/bulk.py;
   6. steady stream           make_stream_workload(F frames over K keys
                per type prefix) in coalescer flushes of 512 frames through
                phase 4's engine and store (steady path on), a flush after
@@ -71,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import inspect
 import json
 import statistics
 import subprocess
@@ -167,9 +178,188 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(dev, seed: int) -> dict:
+def k1_cases(dev, g, widths: dict, flush_l2, clean_l2) -> dict:
+    """K1 fused with its apply (ops/kernels.py fold_apply) against its
+    plain version (ops/bulk.py fold_apply), at the device-fold catch-up's
+    own fold widths (`widths`, workload.fold_widths: phase 5 checks that
+    its launches have exactly these), for elements and registers, each
+    timed beside the chain the engine ran before (the fold-only launch,
+    then the plain bulk_elems / bulk_lww; registers with the zero del
+    stack they read), a read-flushed time (clean_ms) and a one-column
+    floor; plus an even element width (16-byte accesses; the widths
+    above are odd but one).  Untimed: every R instantiation and R > 8,
+    odd widths, offset views, ids beyond the state, all-absent columns,
+    ties, and the fold-only mode.  -> the record, cases[0] the largest
+    element width."""
+    import torch
+
+    from constdb_tpu_torch.ops import bulk as B
+    from constdb_tpu_torch.ops import dense as D
+    from constdb_tpu_torch.ops import kernels as KN
+
+    i64 = torch.int64
+    R = 8
+
+    def stacks(rows, cols, has_del):
+        # small stamp ranges force (t) ties and full (t, node) ties; ~1/8
+        # of the cells and the first 64 columns absent (NEUTRAL_T); del_t
+        # set in ~1/4 of the cells
+        at = torch.randint(1, 16, (rows, cols), generator=g, dtype=i64,
+                           device=dev)
+        m = torch.rand((rows, cols), generator=g, device=dev) < 0.125
+        at = torch.where(m, torch.full_like(at, NEUTRAL_T), at)
+        at[:, :64] = NEUTRAL_T
+        an = torch.randint(0, 4, (rows, cols), generator=g, dtype=i64,
+                           device=dev)
+        if not has_del:
+            return at, an, None
+        dt = torch.randint(1, 16, (rows, cols), generator=g, dtype=i64,
+                           device=dev)
+        dt[torch.rand((rows, cols), generator=g, device=dev) < 0.75] = 0
+        return at, an, dt
+
+    def state(size, has_del):
+        # a fresh resident plane (zeros, the batch wins) with ~1/8 of the
+        # rows already merged: those win some columns and tie others
+        planes = [torch.zeros(size, dtype=i64, device=dev)
+                  for _ in range(3 if has_del else 2)]
+        old = torch.rand(size, generator=g, device=dev) < 0.125
+        for p, hi in zip(planes, (16, 4, 16)):
+            p[old] = torch.randint(0, hi, (int(old.sum()),), generator=g,
+                                   dtype=i64, device=dev)
+        return planes
+
+    def call(fn, st, stk, idx):
+        at, an, dt = stk
+        return fn(at, an, idx, st[0], st[1], dt=dt,
+                  st_dt=st[2] if dt is not None else None)
+
+    def check(stk, idx, st0):
+        """Kernel and plain on copies of st0 -> (max abs err, kernel's
+        state planes, winners)."""
+        mine = [p.clone() for p in st0]
+        plain = [p.clone() for p in st0]
+        w = call(KN.fold_apply, mine, stk, idx)
+        wp = call(B.fold_apply, plain, stk, idx)
+        err = max_abs_err("K1 fold_apply", [w.to(i64), *mine],
+                          [wp.to(i64), *plain])
+        return err, mine, w
+
+    def fold_only_check(stk):
+        at, an, dt = stk
+        if dt is None:
+            return max_abs_err("K1 merge_lww", KN.merge_lww(at, an),
+                               D.dense_merge_lww(at, an))
+        return max_abs_err("K1 merge_elems", KN.merge_elems(at, an, dt),
+                           D.dense_merge_elems(at, an, dt))
+
+    # (variant, width, rows of the earlier folds of its family), the
+    # largest element width first
+    shapes = []
+    for variant, fam in (("elements", "el"), ("registers", "reg")):
+        offs = [sum(widths[fam][:i]) for i in range(len(widths[fam]))]
+        shapes += sorted(((variant, w, o) for w, o in
+                          zip(widths[fam], offs)), key=lambda x: -x[1])
+    shapes.append(("elements, even width", 1 << 19, 0))
+    cases = []
+    for variant, cols, off in shapes:
+        has_del = variant.startswith("elements")
+        # the state as the engine holds it: this fold's rows an ascending
+        # run after the earlier folds' rows, in a power-of-two plane
+        size = 1 << (off + cols - 1).bit_length()
+        idx = torch.arange(off, off + cols, dtype=torch.int32, device=dev)
+        stk = stacks(R, cols, has_del)
+        st0 = state(size, has_del)
+        err, after, win = check(stk, idx, st0)
+        err = max(err, fold_only_check(stk))
+        # bytes this run's data needs: the stacks, idx and the state rows
+        # read once, the winner written, and the state words that changed
+        planes = len(st0)
+        wrote = sum(int((a != b).sum()) for a, b in zip(after, st0))
+        nbytes = planes * R * cols * 8 + cols * 4 + planes * cols * 8 + \
+            cols * 4 + wrote * 8
+        b_ms, b_by = bound_ms(nbytes, planes * R * cols * 2)
+        copies = {k: [p.clone() for p in st0] for k in ("ms", "chain_ms",
+                                                        "plain_ms")}
+
+        def restore():
+            for cp in copies.values():
+                for x, y in zip(cp, st0):
+                    x.copy_(y)
+
+        def chain(stk=stk, idx=idx, st=copies["chain_ms"]):
+            # the engine before: the fold-only launch (registers: on a
+            # zero del stack), then the plain bulk op
+            at, an, dt = stk
+            if dt is None:
+                ft, fn, _, _ = KN.merge_elems(at, an, torch.zeros_like(at))
+                return B.bulk_lww(st[0], st[1], idx, ft, fn)
+            ft, fn, fd, _ = KN.merge_elems(at, an, dt)
+            return B.bulk_elems(*st, idx, ft, fn, fd)
+
+        fns = {"ms": lambda stk=stk, idx=idx, st=copies["ms"]:
+               call(KN.fold_apply, st, stk, idx),
+               "chain_ms": chain,
+               "plain_ms": lambda stk=stk, idx=idx, st=copies["plain_ms"]:
+               call(B.fold_apply, st, stk, idx)}
+        t = time_ms(fns, flush=lambda: (restore(), flush_l2()))
+        t.update(time_ms({"clean_ms": fns["ms"]},
+                         flush=lambda: (restore(), clean_l2()),
+                         warmup_s=0.3))
+        cases.append({**t, "bound_ms": b_ms, "bound_by": b_by,
+                      "max_abs_err": err, "shape": [R, cols],
+                      "case": variant, "state_rows": size,
+                      "batch_wins": int((win >= 0).sum()),
+                      "state_words_written": wrote,
+                      "width": KN._k1_width(cols, *(x for x in stk
+                                                    if x is not None),
+                                            idx, win)})
+    # the floor of one launch: one column (launch and load latency only)
+    stk1 = stacks(R, 1, True)
+    st1 = state(1, True)
+    idx1 = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor = time_ms({"floor_ms": lambda: call(KN.fold_apply, st1, stk1,
+                                              idx1)},
+                    flush=flush_l2, warmup_s=0.3)
+    for c in cases:
+        c.update(floor)
+    # untimed: every R instantiation and the looped one, odd widths (W =
+    # 1), even ones (W = 2), ids beyond the state (pad rows), both
+    # variants and the fold-only mode, and views one element into their
+    # storage (W = 1 on an even width)
+    coverage = []
+    for rows in (1, 2, 3, 5, 8, 9, 32):
+        for cols in (1, 7, 8190, 131071):
+            for has_del in (True, False):
+                stk = stacks(rows, cols, has_del)
+                size = cols + 5
+                idx = torch.randperm(size + 9, generator=g,
+                                     device=dev)[:cols].to(torch.int32)
+                check(stk, idx, state(size, has_del))
+                fold_only_check(stk)
+                coverage.append([rows, cols, "del" if has_del else "reg"])
+    cols = 8190
+    for has_del in (True, False):
+        stk = stacks(R, cols, has_del)
+        idx = torch.randperm(cols + 9, generator=g,
+                             device=dev)[:cols].to(torch.int32)
+        views = []
+        for x in (*(x for x in stk if x is not None), idx):
+            f = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            f[1:] = x.reshape(-1)
+            views.append(f[1:].view(x.shape))
+        stk_v = (views[0], views[1], views[2] if has_del else None)
+        assert views[0].data_ptr() % 16 == 8
+        check(stk_v, views[-1], state(cols + 4, has_del))
+        fold_only_check(stk_v)
+        coverage.append([R, cols, "offset 1", "del" if has_del else "reg"])
+    return {**cases[0], "library_ms": None, "cases": cases,
+            "coverage": coverage}
+
+
+def kernel_phase(dev, seed: int, widths: dict) -> dict:
     """Hold K1, K2, K4 against their plain versions at the catch-up
-    shapes; -> {name: record}."""
+    shapes (K1's fold widths: `widths`); -> {name: record}."""
     import torch
 
     from constdb_tpu_torch.ops import dense as D
@@ -190,33 +380,8 @@ def kernel_phase(dev, seed: int) -> dict:
         # write-back the timed launch would pay for
         scratch.sum()
 
-    def stack(lo, hi):
-        return torch.randint(lo, hi, (R, S), generator=g, dtype=i64,
-                             device=dev)
+    recs = {"merge_elems": k1_cases(dev, g, widths, flush_l2, clean_l2)}
 
-    def with_neutral(x):
-        # ~1/8 of the cells absent (NEUTRAL_T), and whole absent columns
-        m = torch.rand((R, S), generator=g, device=dev) < 0.125
-        x = torch.where(m, torch.full_like(x, NEUTRAL_T), x)
-        x[:, :64] = NEUTRAL_T
-        return x
-
-    recs = {}
-    # K1: small stamp ranges force (t) ties and full (t, node) ties
-    at = with_neutral(stack(0, 16))
-    an = stack(0, 4)
-    dt = stack(0, 16)
-    err = max_abs_err("K1 merge_elems", KN.merge_elems(at, an, dt),
-                      D.dense_merge_elems(at, an, dt))
-    nbytes = 3 * R * S * 8 + 4 * S * 8
-    ops = 3 * R * S * 2
-    b_ms, b_by = bound_ms(nbytes, ops)
-    t = time_ms({"ms": lambda: KN.merge_elems(at, an, dt),
-                 "plain_ms": lambda: D.dense_merge_elems(at, an, dt)},
-                flush=flush_l2)
-    recs["merge_elems"] = {
-        **t, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": err, "shape": [R, S]}
     # K2: values below NEUTRAL_T among ties (the edge where the
     # reference's XLA twin and its Pallas kernel disagree), at the
     # device-fold catch-up's two shapes (phase 5 logs them: its stacks
@@ -385,8 +550,6 @@ def profiled(fn) -> dict:
     device-side events: kernels and copies; None when the profiler
     reports none), the busy seconds of the top kernel names and every
     device event's full name."""
-    import inspect
-
     import torch
     from torch.profiler import ProfilerActivity, profile
     kw = {"acc_events": True} \
@@ -951,6 +1114,7 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
 
     from constdb_tpu_torch import workload as W
     from constdb_tpu_torch.engine.cuda import TorchMergeEngine
+    from constdb_tpu_torch.ops import bulk as B
     from constdb_tpu_torch.ops import kernels as KN
     from constdb_tpu_torch.store.keyspace import KeySpace
 
@@ -976,6 +1140,40 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
         return real_k2(vals, ts)
 
     KN.merge_counters = k2_logged
+    # every K1 launch's [R, S] and variant, and per reg/el fold of the
+    # engine its K1 launches and its calls into ops/bulk.py (the plain
+    # mask-indexed ops); the engine looks both up on their modules
+    k1_shapes = []
+    real_k1 = KN.fold_apply
+
+    def k1_logged(at, an, idx, st_at, st_an, dt=None, st_dt=None):
+        k1_shapes.append([*at.shape, "elements" if dt is not None
+                          else "registers"])
+        return real_k1(at, an, idx, st_at, st_an, dt=dt, st_dt=st_dt)
+
+    KN.fold_apply = k1_logged
+    bulk_calls = [0]
+    real_bulk = {name: getattr(B, name) for name in B.__all__
+                 if inspect.isfunction(getattr(B, name))}
+
+    def counted(f):
+        def wrapper(*a, **kw):
+            bulk_calls[0] += 1
+            return f(*a, **kw)
+        return wrapper
+
+    for name, f in real_bulk.items():
+        setattr(B, name, counted(f))
+    folds = []
+    real_fold = eng._fold_apply
+
+    def fold_counted(*a):
+        l0, b0 = KN.LAUNCHES["merge_elems"], bulk_calls[0]
+        out = real_fold(*a)
+        folds.append((KN.LAUNCHES["merge_elems"] - l0, bulk_calls[0] - b0))
+        return out
+
+    eng._fold_apply = fold_counted
     # counter-sum re-derivations (one per whole-plane counter flush)
     rederive = []
     real_sums = eng._recompute_sums
@@ -1005,12 +1203,22 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
     finally:
         gc.callbacks.remove(gc_timer)
         KN.merge_counters = real_k2
-        del eng._recompute_sums
+        KN.fold_apply = real_k1
+        for name, f in real_bulk.items():
+            setattr(B, name, f)
+        del eng._recompute_sums, eng._fold_apply
     launches = dict(KN.LAUNCHES)
     if on_card and not 1 <= launches["segment_sum"] == len(rederive):
         raise AssertionError(
             f"{label}: K4 launched {launches['segment_sum']} times in "
             f"{len(rederive)} counter-sum re-derivations")
+    if on_card and fold == "cuda" and (
+            len(folds) != len(k1_shapes) or
+            any(f != (1, 0) for f in folds)):
+        raise AssertionError(
+            f"{label}: reg/el folds (K1 launches, ops/bulk.py calls): "
+            f"{folds} for {len(k1_shapes)} K1 calls; each fold must "
+            "launch K1 once and run no plain bulk op")
     t0 = time.perf_counter()
     checked, mismatches = W.verify_store(store, batches, n_keys)
     t_ver = time.perf_counter() - t0
@@ -1023,7 +1231,8 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
            "h2d_bytes": eng.bytes_h2d, "d2h_bytes": eng.bytes_d2h,
            "family_secs": {k: round(v, 3) for k, v in eng.family_secs.items()},
            "sums_s": eng.family_secs["sums"], "gc_s": gc_s,
-           "k2_shapes": k2_shapes,
+           "k2_shapes": k2_shapes, "k1_shapes": k1_shapes,
+           "k1_folds": folds,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)
            if on_card else None}
     log(f"{label}: {n_keys} keys x {n_rep} replicas, {len(chunks)} chunks "
@@ -1039,6 +1248,9 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
     shapes = sorted({tuple(x) for x in k2_shapes})
     log(f"{label}: K2 launches {len(k2_shapes)}, [R, S] of each: "
         f"{k2_shapes}; distinct {[list(x) for x in shapes]}")
+    log(f"{label}: K1 (fold_apply) calls {len(k1_shapes)}, [R, S, "
+        f"variant] of each: {k1_shapes}; per reg/el fold (K1 launches, "
+        f"ops/bulk.py calls): {folds}")
     kid = store.cnt.kid[:store.cnt.n]
     d = np.diff(kid)
     log(f"{label}: cnt.kid layout: {len(kid)} counter slots over "
@@ -1110,7 +1322,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"build[{name}]: {line.strip()}")
 
-    recs = kernel_phase(dev, args.seed)
+    from constdb_tpu_torch import workload as W
+    widths = W.fold_widths(args.keys, args.seed, CHUNK_KEYS)
+    recs = kernel_phase(dev, args.seed, widths)
     recs.update(steady_kernel_phase(dev, args.seed, args.stream_keys))
     log(f"kernels: SM clock, max SM clock after timing: {sm_clock()}")
     for name, r in recs.items():
@@ -1138,6 +1352,11 @@ def main() -> int:
     for k in ("merge_elems", "merge_counters"):
         if not fold["launches"][k]:
             raise AssertionError(f"catch-up (device fold) did not launch {k}")
+    want = sorted([[rep, w, "elements"] for w in widths["el"]] +
+                  [[rep, w, "registers"] for w in widths["reg"]])
+    if sorted(fold["k1_shapes"]) != want:
+        raise AssertionError(f"catch-up (device fold): K1 ran on "
+                             f"{fold['k1_shapes']}, phase 3 timed {want}")
     # after both timed catch-ups, so no profiler run precedes them; phase
     # 4's engine only: a profiler run around phase 5's engine once saw no
     # device events at all

@@ -11,9 +11,10 @@ tensors on one device (CUDA, or the CPU when the caller asks for it):
     brand new the initial state is made on the device.
   * aligned fold: R batches staging the very same slot rows (R replica
     snapshots of one keyspace) reduce in one [R, N] pass, on the card by
-    the hand-written kernels of ops/kernels.py (K1 merge_elems for
-    elements and registers, K2 merge_counters for counter slots), then
-    write once.
+    the hand-written kernels of ops/kernels.py, then write once: K1
+    fold_apply folds registers and elements and applies the winners to
+    the state in the same launch; K2 merge_counters folds counter slots
+    for a bulk op to write.
   * scatter (ops/segment.py): touched-slot gather + scatter-max, for
     sparse merges when state is host-resident.
 
@@ -312,7 +313,8 @@ class TorchMergeEngine:
         """Several int64 and int32 host columns to the device in ONE copy:
         packed int64 first (alignment), then int32, into a pinned slot of
         the staging ring, one non_blocking copy, an event behind it.
-        -> (int64 device views, int32 device views), in order."""
+        -> (int64 device views, int32 device views), in order, each of
+        its host array's shape."""
         cols = [(np.ascontiguousarray(c, dtype=_I64), torch.int64)
                 for c in i64] + \
             [(np.ascontiguousarray(c, dtype=_I32), torch.int32) for c in i32]
@@ -335,7 +337,7 @@ class TorchMergeEngine:
         offs = []
         off = 0
         for c, _ in cols:
-            host[off:off + c.nbytes] = c.view(np.uint8)
+            host[off:off + c.nbytes] = c.reshape(-1).view(np.uint8)
             offs.append(off)
             off += c.nbytes
         dev = host_t
@@ -344,7 +346,7 @@ class TorchMergeEngine:
             dev.copy_(host_t, non_blocking=True)
             slot["ev"] = torch.cuda.Event()
             slot["ev"].record()
-        views = [dev[o:o + c.nbytes].view(dt)
+        views = [dev[o:o + c.nbytes].view(dt).view(c.shape)
                  for (c, dt), o in zip(cols, offs)]
         return views[:len(i64)], views[len(i64):]
 
@@ -362,6 +364,17 @@ class TorchMergeEngine:
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         h.copy_(t, non_blocking=True)
         return h
+
+    def _get_pinned(self, t: torch.Tensor) -> np.ndarray:
+        """One download into pinned host memory, waited on through an
+        event recorded behind it (no pageable copy)."""
+        h = self._start_get(t)
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            ev.synchronize()
+        self.bytes_d2h += h.numel() * h.element_size()
+        return h.numpy()
 
     def _full(self, n: int, fill: int, cols: int = 0) -> torch.Tensor:
         """Neutral state made on the device (cols=0 -> [n]; cols=C -> [n, C])."""
@@ -393,20 +406,20 @@ class TorchMergeEngine:
             return self.dense_fold
         return "cuda" if self.device.type == "cuda" else "eager"
 
-    def _fold_lex(self, t_s, n_s, d_s):
-        """[R, N] stacks -> (t[N], n[N], d[N], win_batch[N]) on device."""
-        t, n, d = (self._h2d(a) for a in (t_s, n_s, d_s))
-        if self._fold_backend() == "cuda":
-            return KN.merge_elems(t, n, d)
-        return D.dense_merge_elems(t, n, d)
-
-    def _fold_lww(self, t_s, n_s):
-        """[R, N] stacks -> plain (t, node) LWW winner (t[N], n[N],
-        win_batch[N]); K1's del side is made on the device."""
-        t, n = self._h2d(t_s), self._h2d(n_s)
-        if self._fold_backend() == "cuda":
-            return KN.merge_lww(t, n)
-        return D.dense_merge_lww(t, n)
+    def _fold_apply(self, stacks, ids: np.ndarray, planes) -> np.ndarray:
+        """K1 with its apply: the [R, nA] host stacks (t, node and, for
+        elements, del_t) and the nA int32 state rows `ids` go up in ONE
+        packed copy; the fold's winners land IN PLACE in the device state
+        `planes` (t, node[, del_t]); the winner column comes back through
+        one pinned download.  -> win [nA] int32 host array: the winning
+        batch where the batch beat the state row, else -1."""
+        dev, (idx,) = self._h2d_packed(list(stacks), [ids])
+        dt, st_dt = (dev[2], planes[2]) if len(dev) > 2 else (None, None)
+        fn = KN.fold_apply if self._fold_backend() == "cuda" \
+            else B.fold_apply
+        win = fn(dev[0], dev[1], idx, planes[0], planes[1], dt=dt,
+                 st_dt=st_dt)
+        return self._get_pinned(win)
 
     def _fold_pair(self, v_s, t_s):
         """[R, N] stacks -> per-slot (value @ time) LWW with max-value tie:
@@ -1310,13 +1323,7 @@ class TorchMergeEngine:
         _, (ids,) = self._h2d_packed([], [store.cnt.kid[:n]])
         sums = KN.segment_sum(ids, cols["val"][:n], nk,
                               base=cols["base"][:n])
-        h = self._start_get(sums)
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event()
-            ev.record()
-            ev.synchronize()
-        self.bytes_d2h += h.numel() * h.element_size()
-        store.keys.cnt_sum[:nk] = h.numpy()
+        store.keys.cnt_sum[:nk] = self._get_pinned(sums)
         self.family_secs["sums"] += time.perf_counter() - t0
 
     # ---------------------------------------------------- tensor registers
@@ -2010,9 +2017,9 @@ class TorchMergeEngine:
         if plan["use_bulk"] and not (self.resident and self._host_combine()):
             plan["fold"] = self._fold_on and _rows_aligned(staged)
             if plan["fold"]:
-                np_ = K.next_pow2(max(len(staged[0][0]), 1))
-                plan["t_s"] = self._stacked(staged, 1, K.NEUTRAL_T, np_)
-                plan["n_s"] = self._stacked(staged, 2, K.NEUTRAL_T, np_)
+                # K1's stacks: exactly the fold's real columns
+                plan["t_s"] = np.stack([s[1] for s in staged])
+                plan["n_s"] = np.stack([s[2] for s in staged])
         return plan
 
     def _dispatch_registers(self, store: KeySpace, plan, st) -> None:
@@ -2051,10 +2058,13 @@ class TorchMergeEngine:
                 return
             fold = plan["fold"]
             if fold:
-                rows0, nA, _np, idx = self._fold_prep(staged, base, sp)
-                ft, fn, winb = self._fold_lww(plan["t_s"], plan["n_s"])
-                t, nd, win = B.bulk_lww(t, nd, idx, ft, fn)
-                wins = [win]
+                # one K1 launch folds the stacks and applies the winners
+                # to (t, nd) in place
+                rows0 = staged[0][0]
+                self.folds += 1
+                winb = self._fold_apply(
+                    (plan["t_s"], plan["n_s"]),
+                    (rows0 - base).astype(_I32), (t, nd))
             else:
                 dev = [self._upload_batch(p, base, sp,
                                           [(bt, K.NEUTRAL_T),
@@ -2071,9 +2081,8 @@ class TorchMergeEngine:
                 store.keys.rv_node[base:n] = self._get(nd[:size])
             reg_val = store.reg_val
             if fold:
-                winb_h = self._get(winb)
-                for j in np.nonzero(self._get(wins[0])[:nA])[0]:
-                    reg_val[int(rows0[j])] = staged[int(winb_h[j])][3][int(j)]
+                for j in np.nonzero(winb >= 0)[0]:
+                    reg_val[int(rows0[j])] = staged[int(winb[j])][3][int(j)]
                 return
             for (pos, _, _, vals), win in zip(staged, wins):
                 for j in np.nonzero(self._get(win)[: len(pos)])[0]:
@@ -2412,10 +2421,10 @@ class TorchMergeEngine:
         if plan["use_bulk"] and not (self.resident and self._host_combine()):
             plan["fold"] = self._fold_on and _rows_aligned(staged)
             if plan["fold"]:
-                np_ = K.next_pow2(max(len(staged[0][0]), 1))
-                plan["a_s"] = self._stacked(staged, 1, K.NEUTRAL_T, np_)
-                plan["x_s"] = self._stacked(staged, 2, K.NEUTRAL_T, np_)
-                plan["d_s"] = self._stacked(staged, 3, 0, np_)
+                # K1's stacks: exactly the fold's real columns
+                plan["a_s"] = np.stack([s[1] for s in staged])
+                plan["x_s"] = np.stack([s[2] for s in staged])
+                plan["d_s"] = np.stack([s[3] for s in staged])
         return plan
 
     def _dispatch_elem_rows(self, store: KeySpace, plan, st) -> None:
@@ -2478,11 +2487,13 @@ class TorchMergeEngine:
                 dt = self._state_up(store.el.del_t, base, size, sp, 0, all_new)
             fold = plan["fold"]
             if fold:
-                rows0, nA, _np, idx = self._fold_prep(staged, base, sp)
-                fa, fx, fd, winb = self._fold_lex(plan["a_s"], plan["x_s"],
-                                                  plan["d_s"])
-                at, an, dt, win = B.bulk_elems(at, an, dt, idx, fa, fx, fd)
-                wins = [win]
+                # one K1 launch folds the stacks and applies the winners
+                # to (at, an, dt) in place
+                rows0 = staged[0][0]
+                self.folds += 1
+                winb = self._fold_apply(
+                    (plan["a_s"], plan["x_s"], plan["d_s"]),
+                    (rows0 - base).astype(_I32), (at, an, dt))
             else:
                 dev = [self._upload_batch(
                     r, base, sp, [(a, K.NEUTRAL_T), (x, K.NEUTRAL_T), (d, 0)])
@@ -2508,11 +2519,10 @@ class TorchMergeEngine:
             if fold:
                 # CPU parity: the winning row's value (None included)
                 # replaces the slot's; values live only on dict kids
-                winb_h = self._get(winb)
-                cand = self._get(wins[0])[:nA] & \
+                cand = (winb >= 0) & \
                     np.isin(enc[el_kid[rows0]], S.VALUE_ENCS)
                 for j in np.nonzero(cand)[0]:
-                    sv = staged[int(winb_h[j])][4]
+                    sv = staged[int(winb[j])][4]
                     el_val[int(rows0[j])] = None if sv is None \
                         else sv[int(j)]
                 return

@@ -39,13 +39,15 @@ from typing import NamedTuple
 import torch
 
 from ..crdt.semantics import NEUTRAL_T
+from . import dense as D
 
 __all__ = ["NEUTRAL_T", "device_full", "bulk_max", "bulk_max1", "bulk_lww",
            "bulk_counters", "bulk_counters_vu", "bulk_counters_vu_src",
            "bulk_counters_src", "bulk_elems",
            "bulk_lww_src", "bulk_elems_src_nodt",
            "bulk_lww_src_iota", "bulk_counters_vu_src_iota",
-           "bulk_elems_src_nodt_iota", "gather_rows", "idx_iota",
+           "bulk_elems_src_nodt_iota", "fold_apply", "gather_rows",
+           "idx_iota",
            "PAIR_SRC", "PAIR", "MAX1", "Segment", "scatter_round"]
 
 _I64 = torch.int64
@@ -234,6 +236,23 @@ def bulk_elems(at, an, dt, idx, bat, ban, bdt):
 # An element add side without its del side IS the plain LWW pair.
 bulk_elems_src_nodt = bulk_lww_src
 bulk_elems_src_nodt_iota = bulk_lww_src_iota
+
+
+def fold_apply(at, an, idx, st_at, st_an, dt=None, st_dt=None):
+    """The plain version of K1 with its apply (ops/kernels.py
+    fold_apply): the [R, S] aligned fold (dense_merge_elems, or
+    dense_merge_lww when `dt` is None), then bulk_elems (bulk_lww) of its
+    winners into the state planes, IN PLACE.  idx [S] int32 holds the
+    state rows, or pad rows at or beyond the planes' size, which write
+    nothing.  -> win [S] int32: the fold's winning batch row where the
+    batch beat the state row, else -1."""
+    if dt is None:
+        ft, fn, winb = D.dense_merge_lww(at, an)
+        _, _, win = bulk_lww(st_at, st_an, idx, ft, fn)
+    else:
+        ft, fn, fd, winb = D.dense_merge_elems(at, an, dt)
+        win = bulk_elems(st_at, st_an, st_dt, idx, ft, fn, fd)[3]
+    return torch.where(win, winb.to(_I32), -1)
 
 
 # ------------------------------------------------------ steady scatter round

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the fold, sum and tensor kernels.
 
 These are the reference semantics of the hand-written CUDA kernels in
-ops/kernels.py (K1 `merge_elems`, K2 `merge_counters`, K4
-`segment_sum`, K5 `tensor_take_reduce`): the CPU path and the tests run
-them, and chip_smoke.py holds each kernel against them on the card.  On
+ops/kernels.py (K1 `merge_elems`, which ops/bulk.py `fold_apply`
+composes with its apply, K2 `merge_counters`, K4 `segment_sum`, K5
+`tensor_take_reduce`): the CPU path and the tests run them, and
+chip_smoke.py holds each kernel against them on the card.  On
 the card the main path calls only the avg stages and the pool scatter
 below, which have no kernel of their own.
 
@@ -48,7 +49,7 @@ def dense_merge_elems(at, an, dt):
 
 def dense_merge_lww(t, n):
     """[R, S] plain LWW slots (registers): lexicographic (t, node) winner.
-    -> (t[S], n[S], win_batch[S]) — K1 with an all-zero del side."""
+    -> (t[S], n[S], win_batch[S]) — K1's register variant."""
     return _lex_first(t, n)
 
 

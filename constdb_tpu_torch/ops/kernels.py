@@ -4,7 +4,10 @@ Five CUDA C++ kernels replace the reference package's Pallas kernels
 (constdb_tpu/ops/pallas_dense.py), on the snapshot catch-up path (K1, K2,
 K4) and on the steady state (K3, K5):
 
-  * K1 `merge_elems`    (csrc/merge_fold.cu)  <- pallas_dense.merge_elems
+  * K1 `fold_apply`     (csrc/merge_fold.cu)  <- pallas_dense.merge_elems
+                        with the bulk_elems / bulk_lww apply that
+                        follows it fused (`merge_elems` and `merge_lww`
+                        are its fold-only mode)
   * K2 `merge_counters` (csrc/merge_fold.cu)  <- pallas_dense.merge_counters
   * K3 `scatter_round` (csrc/scatter_pair.cu)
                         <- pallas_dense.scatter_pair_src_split: every
@@ -25,8 +28,8 @@ launch on PyTorch's current stream with raw device pointers.  A failed
 build or a failed launch raises: nothing falls back.
 
 Each wrapper takes its plain PyTorch version (ops/dense.py, and
-ops/bulk.py `scatter_round` for K3) only when the tensors it was given
-lie on the CPU.  On CUDA tensors it launches the kernel, counts the
+ops/bulk.py `fold_apply` for K1 and `scatter_round` for K3) only when the
+tensors it was given lie on the CPU.  On CUDA tensors it launches the kernel, counts the
 launch in `LAUNCHES`, or raises.
 """
 
@@ -46,7 +49,8 @@ import torch
 from . import bulk as B
 from . import dense as D
 
-__all__ = ["LAUNCHES", "SOURCES", "build", "merge_elems", "merge_lww",
+__all__ = ["LAUNCHES", "SOURCES", "build", "fold_apply", "merge_elems",
+           "merge_lww",
            "merge_counters", "scatter_round", "scatter_pair_src",
            "segment_sum", "tensor_take_reduce", "reset_launches",
            "Segment", "PAIR_SRC", "PAIR", "MAX1", "MAX_SEGMENTS"]
@@ -60,8 +64,9 @@ SOURCES = {"merge_fold": "merge_fold.cu", "segment_sum": "segment_sum.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel name -> launches since the last reset_launches(); K3 counts
-# fused round launches under its reference name
+# kernel name -> launches since the last reset_launches(); K1 counts
+# every launch of its template (fold_apply, merge_elems, merge_lww) and
+# K3 its fused round launches, each under its reference name
 LAUNCHES = {"merge_elems": 0, "merge_counters": 0, "scatter_pair_src": 0,
             "segment_sum": 0, "tensor_take_reduce": 0}
 
@@ -71,8 +76,11 @@ BUILD_LOG: dict[str, str] = {}   # library name -> nvcc's output (ptxas -v)
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
+    "constdb_fold_apply": [_P, _P, _P, ctypes.c_int, ctypes.c_int64,
+                           ctypes.c_int, _P, _P, _P, _P, ctypes.c_int64, _P,
+                           _P],
     "constdb_merge_elems": [_P, _P, _P, ctypes.c_int, ctypes.c_int64,
-                            _P, _P, _P, _P, _P],
+                            ctypes.c_int, _P, _P, _P, _P, _P],
     "constdb_merge_counters": [_P, _P, ctypes.c_int, ctypes.c_int64,
                                ctypes.c_int, _P, _P, _P],
     "constdb_segment_sum": [_P, _P, _P, ctypes.c_int64, ctypes.c_int64,
@@ -212,31 +220,92 @@ def _stack_shape(kernel: str, *stacks: torch.Tensor) -> tuple[int, int]:
     return int(shape[0]), int(shape[1])
 
 
-def merge_elems(at: torch.Tensor, an: torch.Tensor, dt: torch.Tensor):
-    """K1: [R, S] element fold -> (at[S], an[S], dt[S], win[S] int64):
-    lexicographic (add_t, add_node) max over R, the first row achieving
-    it, and an independent max of del_t."""
-    if _on_cpu(at, an, dt):
-        return D.dense_merge_elems(at, an, dt)
-    _check("merge_elems", at, an, dt)
-    rows, cols = _stack_shape("merge_elems", at, an, dt)
-    out = [torch.empty(cols, dtype=torch.int64, device=at.device)
-           for _ in range(4)]
+def _k1_width(cols: int, *tensors: torch.Tensor) -> int:
+    """K1's columns per thread: 2 when S is even and every int64 pointer
+    is 16-byte aligned (int32 ones 8-byte), else 1 (the scalar variant)."""
+    if cols % 2 == 0 and all(
+            t.data_ptr() % (2 * t.element_size()) == 0 for t in tensors):
+        return 2
+    return 1
+
+
+def fold_apply(at: torch.Tensor, an: torch.Tensor, idx: torch.Tensor,
+               st_at: torch.Tensor, st_an: torch.Tensor,
+               dt: torch.Tensor | None = None,
+               st_dt: torch.Tensor | None = None) -> torch.Tensor:
+    """K1 fused with its apply: fold the [R, S] stacks (at, an and, for
+    elements, dt) as `merge_elems` does, then apply each column to the
+    state row idx[s] (int32) as ops/bulk.py bulk_elems does (bulk_lww
+    without dt): the planes st_at, st_an (and st_dt) of `size` rows are
+    updated IN PLACE where idx[s] lies in [0, size); other ids (the pad
+    rows of ops/bulk.py) write nothing.  Each slot appears at most once
+    in idx.  -> win [S] int32: the winning batch row where the batch beat
+    the state row, else -1."""
+    if (dt is None) != (st_dt is None):
+        raise ValueError("fold_apply: dt and st_dt go together")
+    stacks = (at, an) if dt is None else (at, an, dt)
+    planes = (st_at, st_an) if st_dt is None else (st_at, st_an, st_dt)
+    if _on_cpu(*stacks, idx, *planes):
+        return B.fold_apply(at, an, idx, st_at, st_an, dt=dt, st_dt=st_dt)
+    _check("fold_apply", *stacks, *planes)
+    _check("fold_apply", idx, dtype=torch.int32)
+    rows, cols = _stack_shape("fold_apply", *stacks)
+    size = int(st_at.shape[0])
+    if idx.shape != (cols,) or any(p.shape != (size,) for p in planes):
+        raise ValueError("fold_apply: expected idx [S] and equal-length "
+                         "1-D state planes")
+    win = torch.empty(cols, dtype=torch.int32, device=at.device)
     if cols:
         lib = _lib("merge_fold")
+        rc = lib.constdb_fold_apply(
+            at.data_ptr(), an.data_ptr(),
+            None if dt is None else dt.data_ptr(), rows, cols,
+            _k1_width(cols, *stacks, idx, win), idx.data_ptr(),
+            st_at.data_ptr(), st_an.data_ptr(),
+            None if st_dt is None else st_dt.data_ptr(), size,
+            win.data_ptr(), _stream(at))
+        _check_rc(lib, "fold_apply", rc)
+        LAUNCHES["merge_elems"] += 1
+    return win
+
+
+def _fold_only(at, an, dt):
+    """K1's fold-only mode -> (at[S], an[S], dt[S] or None, win[S]
+    int64) on the card."""
+    stacks = (at, an) if dt is None else (at, an, dt)
+    _check("merge_elems", *stacks)
+    rows, cols = _stack_shape("merge_elems", *stacks)
+    out = [torch.empty(cols, dtype=torch.int64, device=at.device)
+           for _ in range(len(stacks) + 1)]
+    if cols:
+        lib = _lib("merge_fold")
+        o_dt = None if dt is None else out[2].data_ptr()
         rc = lib.constdb_merge_elems(
-            at.data_ptr(), an.data_ptr(), dt.data_ptr(), rows, cols,
-            *(o.data_ptr() for o in out), _stream(at))
+            at.data_ptr(), an.data_ptr(),
+            None if dt is None else dt.data_ptr(), rows, cols,
+            _k1_width(cols, *stacks, *out), out[0].data_ptr(),
+            out[1].data_ptr(), o_dt, out[-1].data_ptr(), _stream(at))
         _check_rc(lib, "merge_elems", rc)
         LAUNCHES["merge_elems"] += 1
-    return tuple(out)
+    return out[0], out[1], None if dt is None else out[2], out[-1]
+
+
+def merge_elems(at: torch.Tensor, an: torch.Tensor, dt: torch.Tensor):
+    """K1, fold only: [R, S] element fold -> (at[S], an[S], dt[S],
+    win[S] int64): lexicographic (add_t, add_node) max over R, the first
+    row achieving it, and an independent max of del_t."""
+    if _on_cpu(at, an, dt):
+        return D.dense_merge_elems(at, an, dt)
+    return _fold_only(at, an, dt)
 
 
 def merge_lww(t: torch.Tensor, n: torch.Tensor):
-    """K1 as the plain (t, node) LWW fold of registers: the del side is an
-    all-zero stack made on the device.  -> (t[S], n[S], win[S])."""
-    at, an, _dt, win = merge_elems(t, n, torch.zeros_like(t))
-    return at, an, win
+    """K1's register variant, fold only: the plain (t, node) LWW fold,
+    with no del plane.  -> (t[S], n[S], win[S])."""
+    if _on_cpu(t, n):
+        return D.dense_merge_lww(t, n)
+    ft, fn, _, win = _fold_only(t, n, None)
+    return ft, fn, win
 
 
 def merge_counters(vals: torch.Tensor, ts: torch.Tensor):

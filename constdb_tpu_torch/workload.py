@@ -43,6 +43,45 @@ def _uuids(rng, n, span_ms=600_000):
     return ((MS0 + ms) << SEQ_BITS) | seq
 
 
+_REG_POOL = 1024
+_MEMBER_POOL = 4096
+
+
+def _layout(rng, n_keys: int, members_per_set: int):
+    """The keyspace layout of make_workload, the first draws of its rng:
+    -> (counter keys, register keys, register value ids, set member
+    rows' key ids, member ids)."""
+    n_cnt = int(n_keys * 0.4)
+    n_reg = int(n_keys * 0.3)
+    reg_idx = rng.integers(0, _REG_POOL, n_reg)
+    set_ki = np.repeat(np.arange(n_cnt + n_reg, n_keys, dtype=_I64),
+                       members_per_set)
+    member_idx = rng.integers(0, _MEMBER_POOL, len(set_ki))
+    # batches declare rows_unique_per_slot: drop duplicate (key, member)
+    # draws so the claim actually holds
+    combo = (set_ki << 32) | member_idx
+    _, first = np.unique(combo, return_index=True)
+    first.sort()
+    return n_cnt, n_reg, reg_idx, set_ki[first], member_idx[first]
+
+
+def fold_widths(n_keys: int, seed: int, chunk_keys: int,
+                members_per_set: int = 4) -> dict:
+    """The aligned folds' widths of a catch-up of make_workload(n_keys,
+    R, seed) in `chunk_keys`-key chunks, per chunk that holds such rows,
+    without making the batches: {"reg": register keys, "el": set member
+    rows}.  Every register holds a value in every replica and every
+    replica holds the same member rows, so each chunk group's register
+    and element rows align and fold in one [R, width] pass."""
+    n_cnt, n_reg, _, set_ki, _ = _layout(np.random.default_rng(seed),
+                                         n_keys, members_per_set)
+    edges = np.arange(0, n_keys + chunk_keys, chunk_keys)
+    reg = np.diff(np.clip(edges, n_cnt, n_cnt + n_reg))
+    el = np.diff(np.searchsorted(set_ki, edges))
+    return {"reg": [int(w) for w in reg if w],
+            "el": [int(w) for w in el if w]}
+
+
 def make_workload(n_keys: int, n_replicas: int, seed: int = 7,
                   members_per_set: int = 4,
                   aligned_counters: bool = False) -> list[ColumnarBatch]:
@@ -52,28 +91,15 @@ def make_workload(n_keys: int, n_replicas: int, seed: int = 7,
     them.  `aligned_counters`: see the module docstring."""
     rng = np.random.default_rng(seed)
     keys = [b"k%010d" % i for i in range(n_keys)]
-    enc = np.empty(n_keys, dtype=np.int8)
-    n_cnt = int(n_keys * 0.4)
-    n_reg = int(n_keys * 0.3)
+    n_cnt, n_reg, reg_idx, set_ki, member_idx = _layout(
+        rng, n_keys, members_per_set)
     n_set = n_keys - n_cnt - n_reg
+    enc = np.empty(n_keys, dtype=np.int8)
     enc[:n_cnt] = S.ENC_COUNTER
     enc[n_cnt:n_cnt + n_reg] = S.ENC_BYTES
     enc[n_cnt + n_reg:] = S.ENC_SET
-
-    reg_pool = [b"v%06d" % i for i in range(1024)]
-    reg_idx = rng.integers(0, len(reg_pool), n_reg)
-    member_pool = [b"m%04d" % i for i in range(4096)]
-
-    set_ki = np.repeat(np.arange(n_cnt + n_reg, n_keys, dtype=_I64),
-                       members_per_set)
-    member_idx = rng.integers(0, len(member_pool), len(set_ki))
-    # batches declare rows_unique_per_slot: drop duplicate (key, member)
-    # draws so the claim actually holds
-    combo = (set_ki << 32) | member_idx
-    _, first = np.unique(combo, return_index=True)
-    first.sort()
-    set_ki = set_ki[first]
-    member_idx = member_idx[first]
+    reg_pool = [b"v%06d" % i for i in range(_REG_POOL)]
+    member_pool = [b"m%04d" % i for i in range(_MEMBER_POOL)]
     el_member = [member_pool[i] for i in member_idx]
     el_val = [None] * len(set_ki)
     if aligned_counters:

@@ -14,6 +14,7 @@ whose kernel wrappers take their plain versions on CPU tensors).
 
 import numpy as np
 import pytest
+import torch
 
 import bench
 from constdb_tpu.crdt import ENC_COUNTER, ENC_DICT
@@ -437,3 +438,78 @@ def test_recompute_sums_passes_base_to_k4(name, monkeypatch):
     assert eng.family_secs["sums"] > 0
     assert ks.canonical() == cpu_can
     assert sums(ks) == cpu_sums
+
+
+def wl_fold_onto_state(seed):
+    """R = 3 aligned replica snapshots of 37 registers and 53 dict fields
+    (a fold's real width, not a power of two), merged onto a store that
+    already holds newer stamps for some of them.  Stamps come from small
+    ranges, so replicas tie on t (node decides) and the batch ties or
+    loses to the state in some columns; some fields carry None values,
+    and a value depends only on its (t, node), as one write's would."""
+    from constdb_tpu.crdt import ENC_BYTES
+    rng = np.random.default_rng(seed)
+    n_reg, n_dict, fields = 37, 11, [b"f%d" % i for i in range(6)]
+    rows = [(d, f) for d in range(n_dict) for f in fields
+            if rng.random() < 0.8][:53]
+    assert len(rows) == 53
+
+    def stamp():
+        return int(rng.integers(1, 6)) << 22, int(rng.integers(1, 4))
+
+    def val(t, node):
+        return None if (t >> 22) % 3 == 0 else b"v%d.%d" % (t >> 22, node)
+
+    def store(p_keep):
+        ks = KeySpace()
+        for i in range(n_reg):
+            t, node = stamp()
+            kid, _ = ks.get_or_create(b"r%03d" % i, ENC_BYTES, 1 << 22)
+            if rng.random() < p_keep:
+                ks.register_set(kid, b"v%d.%d" % (t >> 22, node), t, node)
+        for d, f in rows:
+            t, node = stamp()
+            kid, _ = ks.get_or_create(b"d%03d" % d, ENC_DICT, 1 << 22)
+            if rng.random() < p_keep:
+                ks.elem_add(kid, f, val(t, node), t, node)
+        return ks
+
+    replicas = [batch_from_keyspace(store(1.0)) for _ in range(3)]
+    for b in replicas:
+        b.rows_unique_per_slot = True
+    return store(0.6), [replicas], None
+
+
+def test_device_fold_onto_state_matches_reference(monkeypatch):
+    """The device fold (dense_fold="cuda" on the CPU device: K1's wrapper
+    takes its plain branch) of registers and elements whose real width
+    is not a power of two, onto existing state that wins some columns,
+    values and None values included: one fold_apply call per family,
+    stacks of exactly the fold's width, and canonical() byte-equal to
+    the reference TpuMergeEngine(dense_fold="xla") and CpuMergeEngine."""
+    from constdb_tpu_torch.ops import kernels as KN
+    name = "fold-onto-state"
+    WORKLOADS.setdefault(name, (wl_fold_onto_state, 3))
+    cpu_can, cpu_sums, jax_can, jax_sums = _run_ref(name)
+    assert cpu_can == jax_can and cpu_sums == jax_sums
+    calls = []
+    real = KN.fold_apply
+
+    def spy(at, an, idx, st_at, st_an, dt=None, st_dt=None):
+        calls.append((tuple(at.shape), dt is not None, idx.dtype))
+        return real(at, an, idx, st_at, st_an, dt=dt, st_dt=st_dt)
+
+    monkeypatch.setattr(KN, "fold_apply", spy)
+    for resident in (False, True):
+        calls.clear()
+        init, steps, _ = wl_fold_onto_state(3)
+        eng = TorchMergeEngine(resident=resident, dense_fold="cuda",
+                               device="cpu")
+        ks = convert.keyspace_from_dict(keyspace_dict(init))
+        for group in steps:
+            eng.merge_many(ks, [port_batch(b) for b in group])
+        eng.flush(ks)
+        eng.close()
+        assert sorted(calls) == [((3, 37), False, torch.int32),
+                                 ((3, 53), True, torch.int32)]
+        assert ks.canonical() == cpu_can

@@ -4,7 +4,9 @@ Every port function runs on the CPU here, on the same numpy inputs as its
 JAX counterpart, and must agree EXACTLY (all results are int64 words or
 flags).  The plain versions of the CUDA kernels (K1 merge_elems, K2
 merge_counters, K4 segment_sum) are held against the reference's Pallas
-kernels in interpret mode and its XLA twins; K4 (with and without its
+kernels in interpret mode and its XLA twins; K1 fused with its apply
+(fold_apply) against the reference's two steps, the fold then
+bulk_elems / bulk_lww; K4 (with and without its
 fused base subtraction) against the XLA twin of `segment_sum(ids, val -
 base)` and numpy.add.at (the reference's Pallas segment_sum does not
 trace on this JAX).  The kernels themselves are held against these plain versions on
@@ -219,6 +221,84 @@ def test_k1_merge_elems_plain_matches_pallas_and_xla(R, S_):
     lww = KN.merge_lww(_t(at), _t(an))
     _same(lww, JD.dense_merge_lww(jnp.asarray(at), jnp.asarray(an)))
     assert KN.LAUNCHES == before
+
+
+def _k1_apply_inputs(rng, R, S_, has_del):
+    """[R, S_] stacks, a state of S_ + 6 rows that beats or ties the batch
+    in some columns, and idx: S_ - 5 unique state rows, then 5 pad rows
+    beyond the state (the ops/bulk.py protocol)."""
+    at = _stack(rng, R, S_, 0, 5) << 22
+    at[at < 0] = NT
+    an = _stack(rng, R, S_, 0, 3, neutral=False)
+    dt = _stack(rng, R, S_, 0, 5, neutral=False) << 22 if has_del else None
+    size = S_ + 6
+    idx = _batch(rng, size, S_ - 5, S_)
+    st = [rng.integers(0, 5, size).astype(np.int64) << 22,
+          rng.integers(0, 3, size).astype(np.int64),
+          rng.integers(0, 5, size).astype(np.int64) << 22][:3 if has_del
+                                                           else 2]
+    st[0][rng.random(size) < 0.5] = 0   # fresh rows: the batch wins
+    return at, an, dt, idx, st
+
+
+@pytest.mark.parametrize("has_del", [True, False],
+                         ids=["elements", "registers"])
+@pytest.mark.parametrize("R,S_", [(1, 17), (3, 301), (8, 129), (9, 7)])
+def test_k1_fold_apply_plain_matches_reference_composition(R, S_, has_del):
+    """K1 with its apply (plain version, and the wrapper on CPU tensors)
+    against the reference's two steps on the same inputs: the Pallas
+    merge_elems (interpret mode) or the XLA dense fold, then bulk_elems
+    (elements) or dense_merge_lww then bulk_lww (registers).  The state
+    planes and the winner (the winning batch row where the batch beat
+    the state, else -1) are bit-equal; pad ids write nothing."""
+    rng = np.random.default_rng(R * 100 + S_ + has_del)
+    at, an, dt, idx, st = _k1_apply_inputs(rng, R, S_, has_del)
+    j = jnp.asarray
+    refs = []
+    if has_del:
+        for fold in (PD.merge_elems(j(at), j(an), j(dt), interpret=True),
+                     JD.dense_merge_elems(j(at), j(an), j(dt))):
+            fa, fx, fd, wb = fold
+            *planes, win = JB.bulk_elems(*(j(x) for x in st), j(idx),
+                                         fa, fx, fd)
+            refs.append((np.where(np.asarray(win), np.asarray(wb), -1),
+                         *planes))
+    else:
+        ft, fn, wb = JD.dense_merge_lww(j(at), j(an))
+        *planes, win = JB.bulk_lww(*(j(x) for x in st), j(idx), ft, fn)
+        refs.append((np.where(np.asarray(win), np.asarray(wb), -1),
+                     *planes))
+    before = dict(KN.LAUNCHES)
+    for fn_ in (TB.fold_apply, KN.fold_apply):
+        planes = [_t(x) for x in st]
+        win = fn_(_t(at), _t(an), _t(idx), planes[0], planes[1],
+                  dt=None if dt is None else _t(dt),
+                  st_dt=planes[2] if has_del else None)
+        assert win.dtype == torch.int32
+        for ref in refs:
+            _same((win, *planes), tuple(ref))
+        # pad ids wrote nothing; rows outside idx kept their state
+        untouched = np.setdiff1d(np.arange(len(st[0])), idx)
+        for p_, x in zip(planes, st):
+            np.testing.assert_array_equal(p_.numpy()[untouched],
+                                          x[untouched])
+    assert KN.LAUNCHES == before
+
+
+def test_k1_fold_apply_wrapper_contract():
+    """dt and st_dt go together; the register variant allocates no del
+    plane and the fold-only register wrapper needs none."""
+    rng = np.random.default_rng(5)
+    at, an, dt, idx, st = _k1_apply_inputs(rng, 3, 40, True)
+    planes = [_t(x) for x in st]
+    with pytest.raises(ValueError):
+        KN.fold_apply(_t(at), _t(an), _t(idx), planes[0], planes[1],
+                      dt=_t(dt))
+    with pytest.raises(ValueError):
+        KN.fold_apply(_t(at), _t(an), _t(idx), *planes[:2],
+                      st_dt=planes[2])
+    _same(KN.merge_lww(_t(at), _t(an)),
+          JD.dense_merge_lww(jnp.asarray(at), jnp.asarray(an)))
 
 
 @pytest.mark.parametrize("R,S_", [(1, 17), (3, 300), (8, 129), (9, 7),
