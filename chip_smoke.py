@@ -51,9 +51,10 @@ Phases, one line each; any failure raises and exits non-zero:
                dense_fold="cuda"; verified the same way, K4 launched once
                per re-derivation; K1 and K2 must launch, the [R, S] of
                every K2 launch and the [R, S] and variant of every K1
-               launch are logged, K1's must be phase 3's, and each
-               register and element fold must launch K1 once and call
-               nothing of ops/bulk.py;
+               launch are logged, K1's must be phase 3's, and the
+               whole fold branch of each register and element dispatch
+               must launch K1 once and call no zeros_like and nothing
+               of ops/bulk.py but device_full (its state's growth);
   6. steady stream           make_stream_workload(F frames over K keys
                per type prefix) in coalescer flushes of 512 frames through
                phase 4's engine and store (steady path on), a flush after
@@ -178,19 +179,19 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_cases(dev, g, widths: dict, flush_l2, clean_l2) -> dict:
+def k1_cases(dev, g, R: int, widths: dict, flush_l2, clean_l2) -> dict:
     """K1 fused with its apply (ops/kernels.py fold_apply) against its
     plain version (ops/bulk.py fold_apply), at the device-fold catch-up's
     own fold widths (`widths`, workload.fold_widths: phase 5 checks that
-    its launches have exactly these), for elements and registers, each
-    timed beside the chain the engine ran before (the fold-only launch,
-    then the plain bulk_elems / bulk_lww; registers with the zero del
-    stack they read), a read-flushed time (clean_ms) and a one-column
-    floor; plus an even element width (16-byte accesses; the widths
-    above are odd but one).  Untimed: every R instantiation and R > 8,
-    odd widths, offset views, ids beyond the state, all-absent columns,
-    ties, and the fold-only mode.  -> the record, cases[0] the largest
-    element width."""
+    its launches have exactly these) and R replicas, for elements and
+    registers, each timed beside the chain the engine ran before (the
+    fold-only launch, then the plain bulk_elems / bulk_lww; registers
+    with the zero del stack they read), a read-flushed time (clean_ms)
+    and a one-column floor; plus an even element width (16-byte
+    accesses; the widths above are odd but one).  Untimed: every R
+    instantiation and R > 8, odd widths, offset views, ids beyond the
+    state, all-absent columns, ties, and the fold-only mode.  -> the
+    record, cases[0] the largest element width."""
     import torch
 
     from constdb_tpu_torch.ops import bulk as B
@@ -198,7 +199,6 @@ def k1_cases(dev, g, widths: dict, flush_l2, clean_l2) -> dict:
     from constdb_tpu_torch.ops import kernels as KN
 
     i64 = torch.int64
-    R = 8
 
     def stacks(rows, cols, has_del):
         # small stamp ranges force (t) ties and full (t, node) ties; ~1/8
@@ -357,16 +357,16 @@ def k1_cases(dev, g, widths: dict, flush_l2, clean_l2) -> dict:
             "coverage": coverage}
 
 
-def kernel_phase(dev, seed: int, widths: dict) -> dict:
+def kernel_phase(dev, seed: int, R: int, widths: dict) -> dict:
     """Hold K1, K2, K4 against their plain versions at the catch-up
-    shapes (K1's fold widths: `widths`); -> {name: record}."""
+    shapes (R replicas; K1's fold widths: `widths`); -> {name: record}."""
     import torch
 
     from constdb_tpu_torch.ops import dense as D
     from constdb_tpu_torch.ops import kernels as KN
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    R, S = 8, 131072
+    S = 131072
     i64 = torch.int64
     # L2 is 50 MB: rewrite 128 MB between timed reps so every rep reads
     # its inputs from device memory, as the engine's fresh uploads do
@@ -380,7 +380,7 @@ def kernel_phase(dev, seed: int, widths: dict) -> dict:
         # write-back the timed launch would pay for
         scratch.sum()
 
-    recs = {"merge_elems": k1_cases(dev, g, widths, flush_l2, clean_l2)}
+    recs = {"merge_elems": k1_cases(dev, g, R, widths, flush_l2, clean_l2)}
 
     # K2: values below NEUTRAL_T among ties (the edge where the
     # reference's XLA twin and its Pallas kernel disagree), at the
@@ -447,9 +447,9 @@ def kernel_phase(dev, seed: int, widths: dict) -> dict:
 
     # K4 fused with the base subtraction, on two id layouts: (a) uniform
     # random ids over 2^20 segments (each warp's atomics scatter), (b) the
-    # engine's: R = 8 ascending sweeps over the 400k counter keys of 1M
-    # keys (phase 4 logs its store's layout)
-    n = 3_200_000
+    # engine's: R ascending sweeps over the 400k counter keys of 1M keys
+    # (phase 4 logs its store's layout); R slots per counter key
+    n = 400_000 * R
 
     def k4_words(m):
         return tuple(torch.randint(-(1 << 40), 1 << 40, (m,), generator=g,
@@ -1152,28 +1152,41 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
         return real_k1(at, an, idx, st_at, st_an, dt=dt, st_dt=st_dt)
 
     KN.fold_apply = k1_logged
-    bulk_calls = [0]
+    # calls into ops/bulk.py by name, and zero fills (the del plane the
+    # register fold read before K1 took a variant without one)
+    bulk_calls: dict = {}
     real_bulk = {name: getattr(B, name) for name in B.__all__
                  if inspect.isfunction(getattr(B, name))}
 
-    def counted(f):
+    def counted(name, f):
         def wrapper(*a, **kw):
-            bulk_calls[0] += 1
+            bulk_calls[name] = bulk_calls.get(name, 0) + 1
             return f(*a, **kw)
         return wrapper
 
     for name, f in real_bulk.items():
-        setattr(B, name, counted(f))
+        setattr(B, name, counted(name, f))
+    real_zeros_like = torch.zeros_like
+    torch.zeros_like = counted("torch.zeros_like", real_zeros_like)
+    # the whole fold branch of the register and element dispatch (state
+    # upload, K1, the winners' value loops, the family record): per fold,
+    # (family, K1 launches, ops/bulk.py and zeros_like calls by name)
     folds = []
-    real_fold = eng._fold_apply
 
-    def fold_counted(*a):
-        l0, b0 = KN.LAUNCHES["merge_elems"], bulk_calls[0]
-        out = real_fold(*a)
-        folds.append((KN.LAUNCHES["merge_elems"] - l0, bulk_calls[0] - b0))
-        return out
+    def fold_counted(fam, real):
+        def wrapper(store_, plan, st_):
+            if not (plan and plan.get("fold")):
+                return real(store_, plan, st_)
+            l0, b0 = KN.LAUNCHES["merge_elems"], dict(bulk_calls)
+            out = real(store_, plan, st_)
+            folds.append((fam, KN.LAUNCHES["merge_elems"] - l0,
+                          {k: v - b0.get(k, 0) for k, v in bulk_calls.items()
+                           if v != b0.get(k, 0)}))
+            return out
+        return wrapper
 
-    eng._fold_apply = fold_counted
+    eng._dispatch_registers = fold_counted("reg", eng._dispatch_registers)
+    eng._dispatch_elem_rows = fold_counted("el", eng._dispatch_elem_rows)
     # counter-sum re-derivations (one per whole-plane counter flush)
     rederive = []
     real_sums = eng._recompute_sums
@@ -1206,19 +1219,27 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
         KN.fold_apply = real_k1
         for name, f in real_bulk.items():
             setattr(B, name, f)
-        del eng._recompute_sums, eng._fold_apply
+        torch.zeros_like = real_zeros_like
+        del eng._recompute_sums, eng._dispatch_registers, \
+            eng._dispatch_elem_rows
     launches = dict(KN.LAUNCHES)
     if on_card and not 1 <= launches["segment_sum"] == len(rederive):
         raise AssertionError(
             f"{label}: K4 launched {launches['segment_sum']} times in "
             f"{len(rederive)} counter-sum re-derivations")
+    # device_full is the neutral fill of a resident plane that grows with
+    # the keyspace (torch.full: no mask, no host sync); every other
+    # ops/bulk.py function is a plain apply
     if on_card and fold == "cuda" and (
-            len(folds) != len(k1_shapes) or
-            any(f != (1, 0) for f in folds)):
+            not folds or len(folds) != len(k1_shapes) or
+            any(n1 != 1 or set(calls) - {"device_full"}
+                for _, n1, calls in folds)):
         raise AssertionError(
-            f"{label}: reg/el folds (K1 launches, ops/bulk.py calls): "
-            f"{folds} for {len(k1_shapes)} K1 calls; each fold must "
-            "launch K1 once and run no plain bulk op")
+            f"{label}: reg/el fold dispatches (family, K1 launches, "
+            f"ops/bulk.py and zeros_like calls): {folds} for "
+            f"{len(k1_shapes)} K1 calls; each fold must launch K1 once "
+            "and run no plain bulk op (only device_full may grow its "
+            "state) and no zero fill")
     t0 = time.perf_counter()
     checked, mismatches = W.verify_store(store, batches, n_keys)
     t_ver = time.perf_counter() - t0
@@ -1249,8 +1270,9 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
     log(f"{label}: K2 launches {len(k2_shapes)}, [R, S] of each: "
         f"{k2_shapes}; distinct {[list(x) for x in shapes]}")
     log(f"{label}: K1 (fold_apply) calls {len(k1_shapes)}, [R, S, "
-        f"variant] of each: {k1_shapes}; per reg/el fold (K1 launches, "
-        f"ops/bulk.py calls): {folds}")
+        f"variant] of each: {k1_shapes}; per reg/el fold dispatch "
+        f"(family, K1 launches, ops/bulk.py and zeros_like calls): "
+        f"{folds}")
     kid = store.cnt.kid[:store.cnt.n]
     d = np.diff(kid)
     log(f"{label}: cnt.kid layout: {len(kid)} counter slots over "
@@ -1324,7 +1346,7 @@ def main() -> int:
 
     from constdb_tpu_torch import workload as W
     widths = W.fold_widths(args.keys, args.seed, CHUNK_KEYS)
-    recs = kernel_phase(dev, args.seed, widths)
+    recs = kernel_phase(dev, args.seed, args.replicas, widths)
     recs.update(steady_kernel_phase(dev, args.seed, args.stream_keys))
     log(f"kernels: SM clock, max SM clock after timing: {sm_clock()}")
     for name, r in recs.items():

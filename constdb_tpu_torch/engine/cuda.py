@@ -80,6 +80,12 @@ FAMILIES = ("env", "reg", "cnt", "el", "tns")
 STAGE_RING = 4
 
 
+class _Stack(NamedTuple):
+    """The R equal-length host rows of one [R, n] stack: _h2d_packed
+    packs them back to back, so the stack is never built on the host."""
+    rows: list
+
+
 class _Scatter(NamedTuple):
     """One collected scatter of a steady round, launched at the end of the
     batch: a KN segment kind, the family and plane names, host ids
@@ -279,6 +285,11 @@ class TorchMergeEngine:
         # event recorded behind its last copy
         self._ring = [{"buf": None, "ev": None} for _ in range(STAGE_RING)]
         self._ring_i = 0
+        # the one pinned slot of K1's fold uploads: a fold waits for its
+        # winners, so its copy is done before the next fold packs, and
+        # the slot grows to the largest fold once instead of every ring
+        # slot growing in turn
+        self._fold_slot = {"buf": None, "ev": None}
         self._res: dict[str, dict] = {}   # fam -> {cols, n, cap, ...}
         # deferred win-value resolution (resident mode): host value pool
         # the device `src` planes index into, resolved once at flush
@@ -309,22 +320,34 @@ class TorchMergeEngine:
         return torch.from_numpy(arr).pin_memory().to(self.device,
                                                      non_blocking=True)
 
-    def _h2d_packed(self, i64: list, i32: list):
+    def _h2d_packed(self, i64: list, i32: list, slot: Optional[dict] = None):
         """Several int64 and int32 host columns to the device in ONE copy:
-        packed int64 first (alignment), then int32, into a pinned slot of
-        the staging ring, one non_blocking copy, an event behind it.
+        packed int64 first (alignment), then int32, into a pinned slot
+        (`slot`, else the next of the staging ring), one non_blocking
+        copy, an event behind it.  An int64 entry may be a _Stack, whose
+        rows pack back to back into one [R, n] view.
         -> (int64 device views, int32 device views), in order, each of
         its host array's shape."""
-        cols = [(np.ascontiguousarray(c, dtype=_I64), torch.int64)
-                for c in i64] + \
-            [(np.ascontiguousarray(c, dtype=_I32), torch.int32) for c in i32]
-        nbytes = sum(c.nbytes for c, _ in cols)
+        cols = []   # (host parts, view shape, torch dtype)
+        for group, np_dt, dt in ((i64, _I64, torch.int64),
+                                 (i32, _I32, torch.int32)):
+            for c in group:
+                if isinstance(c, _Stack):
+                    parts = [np.ascontiguousarray(r, dtype=np_dt)
+                             for r in c.rows]
+                    shape = (len(parts), len(parts[0]))
+                else:
+                    parts = [np.ascontiguousarray(c, dtype=np_dt)]
+                    shape = parts[0].shape
+                cols.append((parts, shape, dt))
+        nbytes = sum(p.nbytes for parts, _, _ in cols for p in parts)
         self.bytes_h2d += nbytes
         self.h2d_copies += 1
         cuda = self.device.type == "cuda"
         if cuda:
-            slot = self._ring[self._ring_i]
-            self._ring_i = (self._ring_i + 1) % len(self._ring)
+            if slot is None:
+                slot = self._ring[self._ring_i]
+                self._ring_i = (self._ring_i + 1) % len(self._ring)
             if slot["ev"] is not None:
                 slot["ev"].synchronize()   # its last copy has read it
             if slot["buf"] is None or slot["buf"].numel() < nbytes:
@@ -334,20 +357,21 @@ class TorchMergeEngine:
         else:
             host_t = torch.empty(nbytes, dtype=torch.uint8)
         host = host_t.numpy()
-        offs = []
-        off = 0
-        for c, _ in cols:
-            host[off:off + c.nbytes] = c.reshape(-1).view(np.uint8)
+        offs = [0]
+        for parts, _, _ in cols:
+            off = offs[-1]
+            for p in parts:
+                host[off:off + p.nbytes] = p.reshape(-1).view(np.uint8)
+                off += p.nbytes
             offs.append(off)
-            off += c.nbytes
         dev = host_t
         if cuda:
             dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
             dev.copy_(host_t, non_blocking=True)
             slot["ev"] = torch.cuda.Event()
             slot["ev"].record()
-        views = [dev[o:o + c.nbytes].view(dt).view(c.shape)
-                 for (c, dt), o in zip(cols, offs)]
+        views = [dev[o:e].view(dt).view(shape)
+                 for (_, shape, dt), o, e in zip(cols, offs, offs[1:])]
         return views[:len(i64)], views[len(i64):]
 
     def _get(self, t: torch.Tensor) -> np.ndarray:
@@ -407,13 +431,15 @@ class TorchMergeEngine:
         return "cuda" if self.device.type == "cuda" else "eager"
 
     def _fold_apply(self, stacks, ids: np.ndarray, planes) -> np.ndarray:
-        """K1 with its apply: the [R, nA] host stacks (t, node and, for
-        elements, del_t) and the nA int32 state rows `ids` go up in ONE
-        packed copy; the fold's winners land IN PLACE in the device state
+        """K1 with its apply: the [R, nA] stacks (t, node and, for
+        elements, del_t; each given as its R host rows of nA) and the nA
+        int32 state rows `ids` go up in ONE packed copy through the fold
+        slot; the fold's winners land IN PLACE in the device state
         `planes` (t, node[, del_t]); the winner column comes back through
         one pinned download.  -> win [nA] int32 host array: the winning
         batch where the batch beat the state row, else -1."""
-        dev, (idx,) = self._h2d_packed(list(stacks), [ids])
+        dev, (idx,) = self._h2d_packed([_Stack(r) for r in stacks], [ids],
+                                       slot=self._fold_slot)
         dt, st_dt = (dev[2], planes[2]) if len(dev) > 2 else (None, None)
         fn = KN.fold_apply if self._fold_backend() == "cuda" \
             else B.fold_apply
@@ -2016,10 +2042,6 @@ class TorchMergeEngine:
                     use_bulk=self._use_bulk(total, size), fold=False)
         if plan["use_bulk"] and not (self.resident and self._host_combine()):
             plan["fold"] = self._fold_on and _rows_aligned(staged)
-            if plan["fold"]:
-                # K1's stacks: exactly the fold's real columns
-                plan["t_s"] = np.stack([s[1] for s in staged])
-                plan["n_s"] = np.stack([s[2] for s in staged])
         return plan
 
     def _dispatch_registers(self, store: KeySpace, plan, st) -> None:
@@ -2063,7 +2085,7 @@ class TorchMergeEngine:
                 rows0 = staged[0][0]
                 self.folds += 1
                 winb = self._fold_apply(
-                    (plan["t_s"], plan["n_s"]),
+                    [[s[i] for s in staged] for i in (1, 2)],
                     (rows0 - base).astype(_I32), (t, nd))
             else:
                 dev = [self._upload_batch(p, base, sp,
@@ -2420,11 +2442,6 @@ class TorchMergeEngine:
                     use_bulk=self._use_bulk(total, size), fold=False)
         if plan["use_bulk"] and not (self.resident and self._host_combine()):
             plan["fold"] = self._fold_on and _rows_aligned(staged)
-            if plan["fold"]:
-                # K1's stacks: exactly the fold's real columns
-                plan["a_s"] = np.stack([s[1] for s in staged])
-                plan["x_s"] = np.stack([s[2] for s in staged])
-                plan["d_s"] = np.stack([s[3] for s in staged])
         return plan
 
     def _dispatch_elem_rows(self, store: KeySpace, plan, st) -> None:
@@ -2492,7 +2509,7 @@ class TorchMergeEngine:
                 rows0 = staged[0][0]
                 self.folds += 1
                 winb = self._fold_apply(
-                    (plan["a_s"], plan["x_s"], plan["d_s"]),
+                    [[s[i] for s in staged] for i in (1, 2, 3)],
                     (rows0 - base).astype(_I32), (at, an, dt))
             else:
                 dev = [self._upload_batch(

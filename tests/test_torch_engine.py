@@ -513,3 +513,32 @@ def test_device_fold_onto_state_matches_reference(monkeypatch):
         assert sorted(calls) == [((3, 37), False, torch.int32),
                                  ((3, 53), True, torch.int32)]
         assert ks.canonical() == cpu_can
+
+
+def test_h2d_packed_stack_rows():
+    """_h2d_packed on the CPU device: _Stack rows (int32 and int64) pack
+    back to back into one [R, n] int64 view, plain columns (2-D,
+    read-only, a list) keep their shapes, and int32 columns follow;
+    every view equals its host data, in one copy."""
+    from constdb_tpu_torch.engine import cuda as EC
+    eng = TorchMergeEngine(resident=True, device="cpu")
+    rng = np.random.default_rng(3)
+    n = 100_003
+    rows32 = [rng.integers(-9, 9, n).astype(np.int32) for _ in range(3)]
+    rows64 = [rng.integers(-(1 << 62), 1 << 62, n) for _ in range(2)]
+    mat = rng.integers(0, 1 << 40, (n // 100, 100))
+    ro = rng.integers(0, 5, n)
+    ro.flags.writeable = False
+    ids = rng.integers(0, 100, 2 * n)
+    d64, d32 = eng._h2d_packed(
+        [EC._Stack(rows32), EC._Stack(rows64), mat, ro, [1, 2, 3]],
+        [ids, np.arange(5)])
+    assert eng.h2d_copies == 1
+    want64 = [np.stack(rows32), np.stack(rows64), mat, ro,
+              np.array([1, 2, 3])]
+    for got, want in zip(d64, want64):
+        assert got.dtype == torch.int64 and tuple(got.shape) == want.shape
+        assert np.array_equal(got.numpy(), want)
+    for got, want in zip(d32, (ids, np.arange(5))):
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
