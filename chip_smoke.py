@@ -71,9 +71,26 @@ Phases, one line each; any failure raises and exits non-zero:
                tensor_read_many; reads and state bit-identical to the
                host leg; K5 launched once per group of every read for
                every non-lww strategy, avg included; one read round of
-               each strategy profiled.
-Then one JSON line of kernel records, the nvidia-smi line, and the last
-line {"ok": true, "device": {...}}.
+               each strategy profiled;
+  8. catch-up (snapshot files)  phase 5's R batches, written after phase
+               5 (outside any span) to R snapshot files in a temporary
+               directory (each file's bytes, the total, the write
+               seconds and the disk's free bytes logged; the directory
+               removed at the end), caught up from the files through
+               workload.file_catchup into a fresh device-fold engine
+               and store in groups of R: the wall runs from opening the
+               files to flush and synchronize, decode_s is the demuxes'
+               own share; verified like phase 5; K1, K2 and K4 must
+               launch, every K1 [R, S, variant] and K2 [R, S] must be
+               phase 5's, and each file's NodeMeta must read back as
+               written; then a small file with raw sections loads
+               through load_snapshot on the card and a copy with one
+               key_ct byte flipped raises InvalidSnapshotChecksum.
+Every catch-up logs the tier of its store's staging tables and fails
+unless all are native, and counts the read-only columns the engine
+copies before pinning.  Then one JSON line of kernel records (launches
+by path, phase 8's as "catchup_files"), the run's total seconds, the
+nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the port only.
 """
@@ -84,9 +101,12 @@ import argparse
 import gc
 import inspect
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
@@ -1106,9 +1126,13 @@ def tensor_phase(dev) -> dict:
 
 
 def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
-            fold: str, aligned: bool, label: str):
+            fold: str, aligned: bool, label: str, files=None, batches=None):
     """One streamed catch-up through TorchMergeEngine, verified against
-    the CPU oracle; -> (launches and timings, engine, store, batches)."""
+    the CPU oracle; -> (launches and timings, engine, store, batches).
+    With `files` (one snapshot file per replica of `batches`) the chunks
+    come from the files through workload.file_catchup; the wall span then
+    runs from opening the files to the flush, and `decode_s` is the
+    demuxes' own share of it."""
     import numpy as np
     import torch
 
@@ -1117,14 +1141,21 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
     from constdb_tpu_torch.ops import bulk as B
     from constdb_tpu_torch.ops import kernels as KN
     from constdb_tpu_torch.store.keyspace import KeySpace
+    from constdb_tpu_torch.utils.tables import tier
 
     t0 = time.perf_counter()
-    batches = W.make_workload(n_keys, n_rep, seed=seed,
-                              aligned_counters=aligned)
-    chunks = W.chunk_batches(batches, CHUNK_KEYS)
+    if batches is None:
+        batches = W.make_workload(n_keys, n_rep, seed=seed,
+                                  aligned_counters=aligned)
+    chunks = W.chunk_batches(batches, CHUNK_KEYS) if files is None else None
     t_gen = time.perf_counter() - t0
     eng = TorchMergeEngine(resident=True, dense_fold=fold, device=dev)
     store = KeySpace()
+    tiers = {name: tier(getattr(store, name)) for name in
+             ("key_index", "member_index", "el_index", "tns_index")}
+    if set(tiers.values()) != {"native"}:
+        raise AssertionError(f"{label}: staging tables {tiers}; every "
+                             "one must be the native tier")
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.synchronize()
@@ -1191,6 +1222,26 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
     rederive = []
     real_sums = eng._recompute_sums
     eng._recompute_sums = lambda st: rederive.append(1) or real_sums(st)
+    # columns the engine's _h2d must copy before pinning them: read-only
+    # arrays (the zero-copy views a snapshot decode yields)
+    ro = {"copies": 0, "bytes": 0}
+    real_h2d = eng._h2d
+
+    def h2d_counted(arr):
+        if isinstance(arr, np.ndarray) and arr.flags.c_contiguous and \
+                not arr.flags.writeable:
+            ro["copies"] += 1
+            ro["bytes"] += arr.nbytes
+        return real_h2d(arr)
+
+    eng._h2d = h2d_counted
+    real_flush = eng.flush
+
+    def flush_marked(store_):
+        span[0] = "flush"
+        return real_flush(store_)
+
+    eng.flush = flush_marked
     # host seconds of Python's cyclic garbage collector inside the merge
     # loop and inside the flush: a full collection that lands in a span
     # scans every live object of the process
@@ -1206,10 +1257,13 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
     gc.callbacks.append(gc_timer)
     try:
         t0 = time.perf_counter()
-        for i in range(0, len(chunks), group):
-            eng.merge_many(store, chunks[i:i + group])
-        span[0] = "flush"
-        eng.flush(store)
+        if files is None:
+            for i in range(0, len(chunks), group):
+                eng.merge_many(store, chunks[i:i + group])
+            eng.flush(store)
+            fc = None
+        else:
+            fc = W.file_catchup(eng, store, files, group)
         if on_card:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1221,7 +1275,7 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
             setattr(B, name, f)
         torch.zeros_like = real_zeros_like
         del eng._recompute_sums, eng._dispatch_registers, \
-            eng._dispatch_elem_rows
+            eng._dispatch_elem_rows, eng._h2d, eng.flush
     launches = dict(KN.LAUNCHES)
     if on_card and not 1 <= launches["segment_sum"] == len(rederive):
         raise AssertionError(
@@ -1251,12 +1305,20 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
            "mismatches": mismatches, "gen_s": t_gen, "verify_s": t_ver,
            "h2d_bytes": eng.bytes_h2d, "d2h_bytes": eng.bytes_d2h,
            "family_secs": {k: round(v, 3) for k, v in eng.family_secs.items()},
+           "stage_secs": {k: round(v, 3) for k, v in eng.stage_secs.items()},
            "sums_s": eng.family_secs["sums"], "gc_s": gc_s,
            "k2_shapes": k2_shapes, "k1_shapes": k1_shapes,
-           "k1_folds": folds,
+           "k1_folds": folds, "tables": tiers,
+           "read_only_copies": ro["copies"],
+           "read_only_copy_bytes": ro["bytes"],
            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)
            if on_card else None}
-    log(f"{label}: {n_keys} keys x {n_rep} replicas, {len(chunks)} chunks "
+    if fc is not None:
+        out.update(decode_s=fc["decode_s"],
+                   decode_share=fc["decode_s"] / wall, metas=fc["metas"],
+                   records=fc["records"])
+    n_chunks = len(chunks) if fc is None else fc["chunks"]
+    log(f"{label}: {n_keys} keys x {n_rep} replicas, {n_chunks} chunks "
         f"in groups of {group}, dense_fold={fold}: {wall:.3f} s "
         f"({out['keys_per_s']:.0f} keys/s), folds={eng.folds}, "
         f"launches={launches}, flush {eng.family_secs['flush']:.4f} s of "
@@ -1264,8 +1326,10 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
         f"{len(rederive)} re-derivation(s), one K4 launch each, garbage "
         f"collection {gc_s['merge']:.4f} s in the merges and "
         f"{gc_s['flush']:.4f} s in the flush, "
-        f"verified {checked} keys, 0 mismatches "
-        f"(gen {t_gen:.1f} s, verify {t_ver:.1f} s) {json.dumps(out)}")
+        f"verified {checked} keys, 0 mismatches, staging tables {tiers}, "
+        f"{ro['copies']} read-only columns copied before pinning "
+        f"({ro['bytes']} bytes) (gen {t_gen:.1f} s, verify {t_ver:.1f} s) "
+        f"{json.dumps(out, default=str)}")
     shapes = sorted({tuple(x) for x in k2_shapes})
     log(f"{label}: K2 launches {len(k2_shapes)}, [R, S] of each: "
         f"{k2_shapes}; distinct {[list(x) for x in shapes]}")
@@ -1314,6 +1378,99 @@ def sums_profile(eng, store, label: str) -> None:
         f"{json.dumps(prof)}")
 
 
+def write_files(directory: str, batches) -> list:
+    """Phase 5's R batches to R snapshot files (workload.
+    write_replica_files), outside any timed span."""
+    from constdb_tpu_torch import workload as W
+    du = shutil.disk_usage(directory)
+    log(f"snapshot files: {directory} before writing: total {du.total}, "
+        f"used {du.used}, free {du.free} bytes")
+    t0 = time.perf_counter()
+    paths = W.write_replica_files(batches, directory, CHUNK_KEYS)
+    secs = time.perf_counter() - t0
+    sizes = [os.path.getsize(p) for p in paths]
+    log(f"snapshot files: {len(paths)} files written in {secs:.3f} s, "
+        f"bytes {sizes}, total {sum(sizes)}")
+    return paths
+
+
+def file_phase(dev, n_keys: int, n_rep: int, seed: int, fold: dict,
+               paths: list, batches) -> dict:
+    """Phase 8: the device-fold catch-up from phase 5's R snapshot files
+    into a fresh engine and store, verified like phase 5; its K1 and K2
+    shapes must be phase 5's, K1, K2 and K4 must launch, and each file's
+    NodeMeta must read back as written."""
+    from constdb_tpu_torch import workload as W
+    label = "catch-up (snapshot files)"
+    log(f"{label}: the files were written by this process, so their reads "
+        "may hit the page cache")
+    out, eng, _store, _ = catchup(dev, n_keys, n_rep, seed, n_rep, "cuda",
+                                  True, label, files=paths, batches=batches)
+    eng.close()
+    for k in ("merge_elems", "merge_counters", "segment_sum"):
+        if not out["launches"][k]:
+            raise AssertionError(f"{label} did not launch {k}")
+    for k in ("k1_shapes", "k2_shapes"):
+        if sorted(out[k]) != sorted(fold[k]):
+            raise AssertionError(f"{label}: {k} {out[k]}, phase 5 ran "
+                                 f"{fold[k]}")
+    want = [W.replica_meta(r) for r in range(n_rep)]
+    if out["metas"] != want or out["records"] != [[]] * n_rep:
+        raise AssertionError(f"{label}: NodeMeta read back {out['metas']}, "
+                             f"records {out['records']}; written {want}")
+    log(f"{label}: {out['keys_per_s']:.0f} keys/s, decode {out['decode_s']:.3f}"
+        f" s of {out['wall_s']:.3f} s ({out['decode_share']:.1%}), "
+        f"family_secs {out['family_secs']}, uploads {out['h2d_bytes']} "
+        f"bytes, downloads {out['d2h_bytes']} bytes, K1/K2/K4 launches "
+        f"{[out['launches'][k] for k in ('merge_elems', 'merge_counters', 'segment_sum')]}, "
+        f"{out['read_only_copies']} read-only columns copied before "
+        f"pinning; K1 and K2 shapes equal phase 5's; NodeMeta of every "
+        f"file as written")
+    return out
+
+
+def corrupt_check(dev, directory: str, seed: int) -> None:
+    """A small snapshot file with raw (uncompressed) sections loads
+    through load_snapshot on the card; a copy with one byte of a bulk
+    column flipped raises InvalidSnapshotChecksum."""
+    from constdb_tpu_torch import workload as W
+    from constdb_tpu_torch.errors import InvalidSnapshotChecksum
+    from constdb_tpu_torch.persist.snapshot import (load_snapshot,
+                                                    write_snapshot_file)
+    from constdb_tpu_torch.store.keyspace import KeySpace
+    n = 2000
+    b = W.make_workload(n, 1, seed=seed)[0]
+    path = os.path.join(directory, "small.snapshot")
+    write_snapshot_file(path, W.replica_meta(0), [], [b], chunk_keys=1024,
+                        compress_level=0)
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    at = data.find(b.key_ct[:32].tobytes())
+    if at < 0:
+        raise AssertionError("corrupt check: key_ct column not found raw")
+    data[at + 100] ^= 0x01
+    bad = path + ".flipped"
+    with open(bad, "wb") as f:
+        f.write(data)
+    ks = KeySpace()
+    meta, _ = load_snapshot(path, ks, device=dev)
+    checked, mism = W.verify_store(ks, [b], n)
+    if meta != W.replica_meta(0) or mism:
+        raise AssertionError(f"corrupt check: the clean file loaded {meta}, "
+                             f"{mism} of {checked} keys off")
+    try:
+        load_snapshot(bad, KeySpace(), device=dev)
+    except InvalidSnapshotChecksum:
+        pass
+    else:
+        raise AssertionError("corrupt check: a flipped key_ct byte loaded "
+                             "without InvalidSnapshotChecksum")
+    log(f"snapshot files: a {len(data)}-byte file loads through "
+        f"load_snapshot on the card ({checked} keys verified); with byte "
+        f"{at + 100} (key_ct column) flipped it raises "
+        "InvalidSnapshotChecksum")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--keys", type=int, default=1_000_000)
@@ -1322,6 +1479,7 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=200_000)
     ap.add_argument("--stream-keys", type=int, default=20_000)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -1367,10 +1525,11 @@ def main() -> int:
     auto, eng, store, catch_batches = catchup(
         dev, args.keys, rep, args.seed, 4 * rep, "auto", False,
         "catch-up (auto)")
-    fold, eng2, _store2, _b2 = catchup(dev, args.keys, rep, args.seed, rep,
-                                       "cuda", True, "catch-up (device fold)")
+    fold, eng2, _store2, fold_batches = catchup(
+        dev, args.keys, rep, args.seed, rep, "cuda", True,
+        "catch-up (device fold)")
     eng2.close()
-    del eng2, _store2, _b2
+    del eng2, _store2
     for k in ("merge_elems", "merge_counters"):
         if not fold["launches"][k]:
             raise AssertionError(f"catch-up (device fold) did not launch {k}")
@@ -1379,14 +1538,22 @@ def main() -> int:
     if sorted(fold["k1_shapes"]) != want:
         raise AssertionError(f"catch-up (device fold): K1 ran on "
                              f"{fold['k1_shapes']}, phase 3 timed {want}")
-    # after both timed catch-ups, so no profiler run precedes them; phase
-    # 4's engine only: a profiler run around phase 5's engine once saw no
-    # device events at all
-    sums_profile(eng, store, "catch-up (auto)")
-    stream = stream_phase(dev, eng, store, catch_batches, args.keys,
-                          args.frames, args.stream_keys, args.seed)
-    del eng, store, catch_batches
-    tensor = tensor_phase(dev)
+    file_dir = tempfile.mkdtemp(prefix="constdb_chip_smoke_")
+    try:
+        paths = write_files(file_dir, fold_batches)
+        # after both timed catch-ups, so no profiler run precedes them;
+        # phase 4's engine only: a profiler run around phase 5's engine
+        # once saw no device events at all
+        sums_profile(eng, store, "catch-up (auto)")
+        stream = stream_phase(dev, eng, store, catch_batches, args.keys,
+                              args.frames, args.stream_keys, args.seed)
+        del eng, store, catch_batches
+        tensor = tensor_phase(dev)
+        files = file_phase(dev, args.keys, rep, args.seed, fold, paths,
+                           fold_batches)
+        corrupt_check(dev, file_dir, args.seed)
+    finally:
+        shutil.rmtree(file_dir, ignore_errors=True)
 
     replaces = {
         "merge_elems": "constdb_tpu/ops/pallas_dense.py:105",
@@ -1405,7 +1572,8 @@ def main() -> int:
         by_path = {"catchup_auto": auto["launches"][name],
                    "catchup_fold": fold["launches"][name],
                    "stream": stream["launches"][name],
-                   "tensor": tensor["launches"][name]}
+                   "tensor": tensor["launches"][name],
+                   "catchup_files": files["launches"][name]}
         rec = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": sum(by_path.values()),
@@ -1417,6 +1585,7 @@ def main() -> int:
             rec["cases"] = r["cases"]
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}), flush=True)
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

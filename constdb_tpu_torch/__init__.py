@@ -3,21 +3,25 @@
 A second package beside `constdb_tpu/` (the JAX reference, unchanged).
 It runs the snapshot catch-up merge, `TorchMergeEngine.merge_many` then
 `flush`, on one NVIDIA H100, with hand-written CUDA kernels for the
-aligned replica fold and the counter-sum re-derivation.  It imports
-torch, numpy and the standard library only: never jax, never
-`constdb_tpu`.  JAX-free modules of the reference are kept here as
-copies.
+aligned replica fold and the counter-sum re-derivation, from in-memory
+batches or from snapshot files.  It imports torch, numpy and the
+standard library only: never jax, never `constdb_tpu`.  JAX-free modules
+of the reference, and the C++ sources of its staging tables and CRC64,
+are kept here as copies.
 
 Layer map:
   crdt/      CRDT conflict-resolution semantics (copy)
   store/     columnar keyspace (copy)
-  utils/     pure-Python staging tables, device resolution
+  utils/     staging tables (native C++ tier, pure-Python oracle), the
+             g++ build of native/, varint, checksum, compressed
+             container, device resolution
+  native/    C++ staging tables, CRC64 and their CPython binding
   engine/    MergeEngine boundary: CPU reference + TorchMergeEngine
   ops/       bulk scatter ops, plain folds, CUDA kernel wrappers
   csrc/      CUDA C++ kernels (sm_90a)
-  persist/   catch-up chunker
+  persist/   snapshot file format, writer, loader; catch-up chunker
   convert    reference state carried across as numpy/lists
-  workload   catch-up workload generator and oracle
+  workload   catch-up workloads, the R-file catch-up, oracles
 """
 
 __version__ = "0.1.0"

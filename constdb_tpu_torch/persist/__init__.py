@@ -1,5 +1,11 @@
-"""Persistence: in this slice only the catch-up chunker."""
+"""Persistence: the snapshot file format, its writer and loader, and the
+catch-up chunker."""
 
-from .snapshot import batch_chunks
+from .snapshot import (NodeMeta, ReplicaRecord, SectionDemux,
+                       SnapshotLoader, SnapshotWriter, batch_chunks,
+                       dump_keyspace, iter_keyspace_chunks, load_snapshot,
+                       write_snapshot_file)
 
-__all__ = ["batch_chunks"]
+__all__ = ["NodeMeta", "ReplicaRecord", "SectionDemux", "SnapshotLoader",
+           "SnapshotWriter", "batch_chunks", "dump_keyspace",
+           "iter_keyspace_chunks", "load_snapshot", "write_snapshot_file"]

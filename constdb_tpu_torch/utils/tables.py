@@ -1,11 +1,18 @@
-"""Staging index tables, pure-Python tier.
+"""Staging index tables: the native C++ tier and the pure-Python tier.
 
-The port's own copy of the pure-Python tier of the reference package's
-utils/native_tables.py: `_PyStrTable`, `_PyI64Dict` and `nonnull_mask`,
-behind the same `StrTable` / `I64Dict` factories, so `KeySpace` and the
-engines call the identical API.  The C++ tiers (native/tables.cpp and its
-CPython extension) are not part of the port yet; they come in a later
-slice.
+The merge hot path resolves millions of (bytes -> id) and (int64 -> int64)
+probes per batch.  The port's own C++ tables (native/tables.cpp) do them
+through its CPython extension (native/pyext.cpp), with batch entry points
+so Python crosses into C once per column, not once per row; the
+extension walks a list of bytes directly.  Both are built with g++ at
+first use (utils/native.py).
+
+`StrTable`, `I64Dict` and `nonnull_mask` return the native tier.  A failed
+build or load raises: nothing falls back on its own.  The pure tier
+(`_PyStrTable`, `_PyI64Dict`, the generator in `nonnull_mask`) is the
+tests' oracle and an explicit choice: CONSTDB_TORCH_NO_NATIVE=1 selects
+it.  The reference's middle tier, its ctypes binding of the same tables,
+is not ported.
 
 API shape is numpy-first: batch methods take/return int64 arrays.
 """
@@ -14,13 +21,36 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..conf import env_flag
+
 _I64 = np.int64
 
 
+def native_on() -> bool:
+    """The native tier, unless CONSTDB_TORCH_NO_NATIVE asks for the pure
+    one."""
+    return not env_flag("CONSTDB_TORCH_NO_NATIVE", False)
+
+
+def _ext():
+    from .native import load
+    return load().ext
+
+
 def nonnull_mask(items: list) -> np.ndarray:
-    """Bool ndarray marking entries that are not None."""
+    """Writable bool ndarray marking entries that are not None.  Only an
+    exact list takes the extension (its PyList_CheckExact); any other
+    sized iterable takes the generator on both tiers."""
+    if type(items) is list and native_on():
+        return np.frombuffer(_ext().nonnull_mask(items), dtype=bool)
     return np.fromiter((v is not None for v in items), dtype=bool,
                        count=len(items))
+
+
+def tier(table) -> str:
+    """"native" or "pure": which tier a table object belongs to."""
+    return "native" if isinstance(table, (_ExtStrTable, _ExtI64Dict)) \
+        else "pure"
 
 
 class _PyStrTable:
@@ -108,9 +138,81 @@ class _PyI64Dict:
         return out, next_val - start
 
 
-def StrTable(cap_hint: int = 16) -> _PyStrTable:
-    return _PyStrTable(cap_hint)
+class _ExtStrTable:
+    """bytes -> dense id through the C extension (no blob packing)."""
+
+    __slots__ = ("_h", "_m")
+
+    def __init__(self, cap_hint: int = 16):
+        self._m = _ext()
+        self._h = self._m.strtab_new(cap_hint)
+
+    def __len__(self) -> int:
+        return self._m.strtab_len(self._h)
+
+    def get_or_insert(self, b: bytes) -> int:
+        return self._m.strtab_get_or_insert(self._h, b)
+
+    def lookup(self, b: bytes) -> int:
+        return self._m.strtab_lookup(self._h, b)
+
+    def get_or_insert_batch(self, items: list) -> tuple[np.ndarray, int]:
+        out = np.empty(len(items), dtype=_I64)
+        n_new = self._m.strtab_get_or_insert_batch(self._h, items, out)
+        return out, n_new
+
+    def lookup_batch(self, items: list) -> np.ndarray:
+        out = np.empty(len(items), dtype=_I64)
+        self._m.strtab_lookup_batch(self._h, items, out)
+        return out
+
+    def bytes_of(self, idx: int) -> bytes:
+        return self._m.strtab_bytes_of(self._h, idx)
 
 
-def I64Dict(cap_hint: int = 16) -> _PyI64Dict:
-    return _PyI64Dict(cap_hint)
+class _ExtI64Dict:
+    """int64 -> int64 through the C extension."""
+
+    __slots__ = ("_h", "_m")
+
+    def __init__(self, cap_hint: int = 16):
+        self._m = _ext()
+        self._h = self._m.i64_new(cap_hint)
+
+    def __len__(self) -> int:
+        return self._m.i64_len(self._h)
+
+    def get(self, k: int, dflt: int = -1) -> int:
+        return self._m.i64_get(self._h, k, dflt)
+
+    def put(self, k: int, v: int) -> None:
+        self._m.i64_put(self._h, k, v)
+
+    def delete(self, k: int, dflt: int = -1) -> int:
+        return self._m.i64_del(self._h, k, dflt)
+
+    def lookup_batch(self, keys: np.ndarray, dflt: int = -1) -> np.ndarray:
+        keys = np.ascontiguousarray(keys, dtype=_I64)
+        out = np.empty(len(keys), dtype=_I64)
+        self._m.i64_lookup_batch(self._h, keys, dflt, out)
+        return out
+
+    def put_batch(self, keys: np.ndarray, vals: np.ndarray) -> None:
+        keys = np.ascontiguousarray(keys, dtype=_I64)
+        vals = np.ascontiguousarray(vals, dtype=_I64)
+        self._m.i64_put_batch(self._h, keys, vals)
+
+    def get_or_assign_batch(self, keys: np.ndarray, next_val: int
+                            ) -> tuple[np.ndarray, int]:
+        keys = np.ascontiguousarray(keys, dtype=_I64)
+        out = np.empty(len(keys), dtype=_I64)
+        n_new = self._m.i64_get_or_assign_batch(self._h, keys, next_val, out)
+        return out, n_new
+
+
+def StrTable(cap_hint: int = 16):
+    return (_ExtStrTable if native_on() else _PyStrTable)(cap_hint)
+
+
+def I64Dict(cap_hint: int = 16):
+    return (_ExtI64Dict if native_on() else _PyI64Dict)(cap_hint)

@@ -6,6 +6,11 @@ subsample_workload, oracle_canonical): R replica snapshots of one mixed
 N-key keyspace, 40% PN-counters, 30% LWW registers, 30% sets of
 `members_per_set` members, made from a seed with numpy.
 
+`write_replica_files` and `file_catchup` take the same catch-up through
+snapshot files: one file per replica, read back through one
+`SectionDemux` each, the replicas' chunks interleaved as
+`chunk_batches` interleaves them.
+
 The steady state has two more generators (see their docstrings):
 `make_stream_workload`, a peer's replication stream as the coalescer
 lands it, and `make_tensor_workload`, tensor-register contributions;
@@ -21,7 +26,9 @@ carries only its own slot, so counter rows never align.
 
 from __future__ import annotations
 
+import os
 import sys
+import time
 
 import numpy as np
 
@@ -29,7 +36,8 @@ from .crdt import semantics as S
 from .crdt import tensor as T
 from .engine.base import ColumnarBatch
 from .engine.cpu import CpuMergeEngine
-from .persist.snapshot import batch_chunks
+from .persist.snapshot import (NodeMeta, SectionDemux, batch_chunks,
+                               write_snapshot_file)
 from .store.keyspace import KeySpace
 
 _I64 = np.int64
@@ -163,6 +171,70 @@ def chunk_batches(batches, chunk_keys: int) -> list[ColumnarBatch]:
             if i < len(p):
                 out.append(p[i])
     return out
+
+
+def replica_meta(r: int) -> NodeMeta:
+    """The NODE section of replica r's snapshot file."""
+    return NodeMeta(node_id=r + 1, alias=f"replica{r + 1}",
+                    addr=f"127.0.0.1:{7001 + r}",
+                    repl_last_uuid=((MS0 + 600_000) << SEQ_BITS) + r)
+
+
+def write_replica_files(batches, directory: str,
+                        chunk_keys: int) -> list[str]:
+    """Each replica's batch to its own snapshot file in `directory`
+    (`chunk_keys`-key chunks, zlib level 1 sections, the default
+    checksum), with replica_meta(r) as its NODE section and no replica
+    records.  -> the paths, in replica order."""
+    paths = []
+    for r, b in enumerate(batches):
+        path = os.path.join(directory, f"replica{r + 1}.snapshot")
+        write_snapshot_file(path, replica_meta(r), [], [b],
+                            chunk_keys=chunk_keys)
+        paths.append(path)
+    return paths
+
+
+def file_catchup(eng, store: KeySpace, paths, group: int) -> dict:
+    """A catch-up from R snapshot files: one SectionDemux per file, their
+    chunks interleaved chunk by chunk (the order of chunk_batches, so
+    every R consecutive chunks are slot-aligned), merged with
+    `eng.merge_many` in groups of `group` chunks, then `eng.flush`.
+    -> {"decode_s": seconds inside the demuxes' next() (read, inflate,
+    decode), "chunks": chunks merged, "metas": each file's NodeMeta,
+    "records": each file's replica records}."""
+    files = [open(p, "rb") for p in paths]
+    try:
+        demux = [SectionDemux(f) for f in files]
+        live = [d.batches() for d in demux]
+        decode_s = 0.0
+        n_chunks = 0
+        pending = []
+        while live:
+            still = []
+            for g in live:
+                t0 = time.perf_counter()
+                c = next(g, None)
+                decode_s += time.perf_counter() - t0
+                if c is None:
+                    continue
+                still.append(g)
+                pending.append(c)
+                if len(pending) == group:
+                    eng.merge_many(store, pending)
+                    n_chunks += len(pending)
+                    pending = []
+            live = still
+        if pending:
+            eng.merge_many(store, pending)
+            n_chunks += len(pending)
+        eng.flush(store)
+    finally:
+        for f in files:
+            f.close()
+    return {"decode_s": decode_s, "chunks": n_chunks,
+            "metas": [d.meta for d in demux],
+            "records": [d.replica_rows for d in demux]}
 
 
 def subsample_keys(keys, n_keys: int, target: int = 100_000) -> list:

@@ -1,11 +1,14 @@
 """The port stands alone: importing constdb_tpu_torch (every module under
 it) pulls in neither jax nor constdb_tpu, chip_smoke.py imports neither,
-and an entry point whose device defaults to CUDA raises when there is no
-card instead of moving to the CPU."""
+its C++ sources include nothing outside constdb_tpu_torch/native/ and
+their build reads no file of the repository outside the port, and an
+entry point whose device defaults to CUDA raises when there is no card
+instead of moving to the CPU."""
 
 import ast
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -87,3 +90,34 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_native_sources_include_only_their_own_directory():
+    from constdb_tpu_torch.utils import native
+
+    srcs = sorted(native.SRC.glob("*.cpp"))
+    assert native.SRC == PORT / "native" and srcs
+    for path in srcs:
+        for inc in re.findall(r'#\s*include\s*"([^"]+)"', path.read_text()):
+            assert (native.SRC / inc).is_file() and "/" not in inc, \
+                f"{path.name} includes {inc}"
+
+
+def test_native_build_reads_nothing_outside_the_port(tmp_path):
+    from constdb_tpu_torch.utils import native
+
+    assert PORT in native.BUILD_ROOT.parents
+    cmds = native.commands(native.SRC, tmp_path, "0" * 64)
+    assert set(cmds) == {native.LIB_NAME, native.EXT_NAME}
+    for cmd in cmds.values():
+        out = Path(cmd[cmd.index("-o") + 1])
+        inputs = [a for a in cmd[1:] if a.endswith(".cpp")]
+        assert inputs and all(Path(a).parent == PORT / "native"
+                              for a in inputs)
+        incs = [a[2:] for a in cmd if a.startswith("-I")]
+        assert all(ROOT not in Path(i).parents for i in incs)
+        assert out.parent == tmp_path
+        for a in cmd[1:]:
+            p = Path(a.split("=", 1)[-1])
+            if p.is_absolute() and ROOT in p.parents:
+                assert PORT in p.parents, f"build reads {a}"
