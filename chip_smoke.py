@@ -72,11 +72,12 @@ Phases, one line each; any failure raises and exits non-zero:
                host leg; K5 launched once per group of every read for
                every non-lww strategy, avg included; one read round of
                each strategy profiled;
-  8. catch-up (snapshot files)  phase 5's R batches, written after phase
-               5 (outside any span) to R snapshot files in a temporary
-               directory (each file's bytes, the total, the write
-               seconds and the disk's free bytes logged; the directory
-               removed at the end), caught up from the files through
+  8. catch-up (snapshot files)  phase 5's R batches, made again from
+               its seed after phase 7 (not kept alive through phases
+               6-7) and written (outside any span) to R snapshot files
+               in a temporary directory (each file's bytes, the total,
+               the write seconds and the disk's free bytes logged; the
+               directory removed at the end), caught up from the files through
                workload.file_catchup into a fresh device-fold engine
                and store in groups of R: the wall runs from opening the
                files to flush and synchronize, decode_s is the demuxes'
@@ -1380,7 +1381,7 @@ def sums_profile(eng, store, label: str) -> None:
 
 def write_files(directory: str, batches) -> list:
     """Phase 5's R batches to R snapshot files (workload.
-    write_replica_files), outside any timed span."""
+    write_replica_files), after phase 7 and outside any timed span."""
     from constdb_tpu_torch import workload as W
     du = shutil.disk_usage(directory)
     log(f"snapshot files: {directory} before writing: total {du.total}, "
@@ -1525,11 +1526,11 @@ def main() -> int:
     auto, eng, store, catch_batches = catchup(
         dev, args.keys, rep, args.seed, 4 * rep, "auto", False,
         "catch-up (auto)")
-    fold, eng2, _store2, fold_batches = catchup(
+    fold, eng2, _store2, _ = catchup(
         dev, args.keys, rep, args.seed, rep, "cuda", True,
         "catch-up (device fold)")
     eng2.close()
-    del eng2, _store2
+    del eng2, _store2, _
     for k in ("merge_elems", "merge_counters"):
         if not fold["launches"][k]:
             raise AssertionError(f"catch-up (device fold) did not launch {k}")
@@ -1538,22 +1539,27 @@ def main() -> int:
     if sorted(fold["k1_shapes"]) != want:
         raise AssertionError(f"catch-up (device fold): K1 ran on "
                              f"{fold['k1_shapes']}, phase 3 timed {want}")
+    # after both timed catch-ups, so no profiler run precedes them;
+    # phase 4's engine only: a profiler run around phase 5's engine
+    # once saw no device events at all
+    sums_profile(eng, store, "catch-up (auto)")
+    stream = stream_phase(dev, eng, store, catch_batches, args.keys,
+                          args.frames, args.stream_keys, args.seed)
+    del eng, store, catch_batches
+    tensor = tensor_phase(dev)
+    # phase 5's batches again, from its seed: they are not kept alive
+    # through phases 6-7, and the files are written after them
+    fold_batches = W.make_workload(args.keys, rep, seed=args.seed,
+                                   aligned_counters=True)
     file_dir = tempfile.mkdtemp(prefix="constdb_chip_smoke_")
     try:
         paths = write_files(file_dir, fold_batches)
-        # after both timed catch-ups, so no profiler run precedes them;
-        # phase 4's engine only: a profiler run around phase 5's engine
-        # once saw no device events at all
-        sums_profile(eng, store, "catch-up (auto)")
-        stream = stream_phase(dev, eng, store, catch_batches, args.keys,
-                              args.frames, args.stream_keys, args.seed)
-        del eng, store, catch_batches
-        tensor = tensor_phase(dev)
         files = file_phase(dev, args.keys, rep, args.seed, fold, paths,
                            fold_batches)
         corrupt_check(dev, file_dir, args.seed)
     finally:
         shutil.rmtree(file_dir, ignore_errors=True)
+    del fold_batches
 
     replaces = {
         "merge_elems": "constdb_tpu/ops/pallas_dense.py:105",

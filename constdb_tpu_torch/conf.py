@@ -26,10 +26,6 @@ ENV_REGISTRY = {
     "CONSTDB_TORCH_TENSOR_POOL_MB": "resident tensor payload bytes above "
                                     "which the pools flush and drop "
                                     "(default 512)",
-    "CONSTDB_TORCH_NO_NATIVE": "1 = the pure-Python staging tables and "
-                               "nonnull_mask instead of the native C++ "
-                               "tier (default: native; a failed build "
-                               "raises)",
 }
 
 

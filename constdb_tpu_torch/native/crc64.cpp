@@ -1,6 +1,7 @@
 // CRC-64/XZ (reflected, poly 0x42F0E1EBA9EA3693) — slice-by-8.
 // The port's own copy of the reference package's native/crc64.cpp: the
-// native CRC of constdb_tpu_torch/utils/checksum.py, loaded with ctypes.
+// native CRC of constdb_tpu_torch/utils/checksum.py, included by pyext.cpp
+// and called through its `crc64` method.
 #include <cstdint>
 #include <cstddef>
 
@@ -27,7 +28,7 @@ const Tables kTables;
 
 }  // namespace
 
-extern "C" uint64_t cst_crc64(uint64_t crc, const unsigned char* data, size_t len) {
+inline uint64_t cst_crc64(uint64_t crc, const unsigned char* data, size_t len) {
     crc = ~crc;
     const uint64_t(*t)[256] = kTables.t;
     while (len >= 8) {
@@ -43,11 +44,3 @@ extern "C" uint64_t cst_crc64(uint64_t crc, const unsigned char* data, size_t le
     while (len--) crc = kTables.t[0][(crc ^ *data++) & 0xFF] ^ (crc >> 8);
     return ~crc;
 }
-
-// The build stamp (utils/native.py passes -DCST_ABI_STAMP="<sha256 of the
-// sources and flags>"): the loader refuses a library built from other
-// sources.
-#ifndef CST_ABI_STAMP
-#define CST_ABI_STAMP ""
-#endif
-extern "C" const char* cst_abi_stamp(void) { return CST_ABI_STAMP; }

@@ -1,19 +1,22 @@
-// CPython extension binding for the staging tables (tables.cpp).
+// CPython extension binding for the staging tables (tables.cpp) and CRC-64
+// (crc64.cpp).
 //
 // The port's own copy of the reference package's native/pyext.cpp, trimmed
 // to the tables, nonnull_mask and abi_stamp (the RESP, intake, wire and AOF
-// scanners are not part of the port).  The extension walks a list of
-// PyBytes directly in C, so the caller packs no blob; output arrays are
-// caller-allocated numpy buffers passed through the buffer protocol (no
-// numpy C-API dependency).
+// scanners are not part of the port), with crc64 added: the reference
+// calls its CRC through ctypes, the port through this module.  The
+// extension walks a list of PyBytes directly in C, so the caller packs no
+// blob; output arrays are caller-allocated numpy buffers passed through
+// the buffer protocol (no numpy C-API dependency).
 //
 // Built at first use by constdb_tpu_torch/utils/native.py, with the hash of
-// the sources and flags compiled in as CST_ABI_STAMP; utils/tables.py
-// loads it and refuses a module whose stamp differs.
+// the sources, flags and compiler compiled in as CST_ABI_STAMP; the loader
+// there refuses a module whose stamp differs.
 
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 
+#include "crc64.cpp"   // self-contained: cst_crc64
 #include "tables.cpp"  // self-contained: StrTable / I64Table definitions
 
 #ifndef CST_ABI_STAMP
@@ -306,7 +309,23 @@ static PyObject* py_nonnull_mask(PyObject*, PyObject* args) {
     return out;
 }
 
+// CRC-64/XZ of any C-contiguous buffer, continuing from `crc`; the GIL is
+// released while it runs.
+static PyObject* py_crc64(PyObject*, PyObject* args) {
+    unsigned long long crc;
+    Py_buffer b;
+    if (!PyArg_ParseTuple(args, "Ky*", &crc, &b)) return nullptr;
+    uint64_t out;
+    Py_BEGIN_ALLOW_THREADS
+    out = cst_crc64((uint64_t)crc, (const unsigned char*)b.buf, (size_t)b.len);
+    Py_END_ALLOW_THREADS
+    PyBuffer_Release(&b);
+    return PyLong_FromUnsignedLongLong(out);
+}
+
 PyMethodDef methods[] = {
+    {"crc64", py_crc64, METH_VARARGS,
+     "crc64(crc, buffer) -> CRC-64/XZ of buffer, continuing from crc"},
     {"nonnull_mask", py_nonnull_mask, METH_VARARGS,
      "nonnull_mask(list) -> bytearray bool mask of non-None entries"},
     {"strtab_new", py_strtab_new, METH_VARARGS, ""},

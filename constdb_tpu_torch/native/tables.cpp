@@ -7,8 +7,8 @@
 // Python these are dict probes at ~100ns each over millions of rows; here
 // they are open-addressing tables with batch entry points called once per
 // column through the CPython extension (pyext.cpp, bound by
-// constdb_tpu_torch/utils/tables.py).  The extern "C" entry points are kept
-// in libconstdb_native.so beside crc64.cpp.
+// constdb_tpu_torch/utils/tables.py).  The reference's extern "C" entry
+// points (its ctypes tier) are not part of the port.
 //
 //   StrTable — bytes -> dense id (insertion order).  Strings are copied into
 //              an arena; id -> (offset,len) lets callers recover bytes.
@@ -162,51 +162,6 @@ struct StrTable {
     }
 };
 
-extern "C" {
-
-StrTable* cst_strtab_new(int64_t cap_hint) {
-    return new StrTable((size_t)(cap_hint > 0 ? cap_hint : 16));
-}
-void cst_strtab_free(StrTable* t) { delete t; }
-int64_t cst_strtab_len(StrTable* t) { return (int64_t)t->count; }
-
-int64_t cst_strtab_get_or_insert(StrTable* t, const uint8_t* p, int64_t len) {
-    return t->get_or_insert(p, len);
-}
-int64_t cst_strtab_lookup(StrTable* t, const uint8_t* p, int64_t len) {
-    return t->lookup(p, len);
-}
-
-// blob + offs[n+1] (offs[i]..offs[i+1] delimits item i) -> out_ids[n];
-// returns how many ids are new.
-int64_t cst_strtab_get_or_insert_batch(StrTable* t, const uint8_t* blob,
-                                       const int64_t* offs, int64_t n,
-                                       int64_t* out_ids) {
-    t->batch_begin((size_t)n);
-    int64_t before = (int64_t)t->count;
-    for (int64_t i = 0; i < n; i++)
-        out_ids[i] = t->get_or_insert(blob + offs[i], offs[i + 1] - offs[i]);
-    int64_t fresh = (int64_t)t->count - before;
-    t->batch_end((size_t)n, (size_t)fresh);
-    return fresh;
-}
-
-void cst_strtab_lookup_batch(StrTable* t, const uint8_t* blob,
-                             const int64_t* offs, int64_t n, int64_t* out) {
-    for (int64_t i = 0; i < n; i++)
-        out[i] = t->lookup(blob + offs[i], offs[i + 1] - offs[i]);
-}
-
-int64_t cst_strtab_bytes_len(StrTable* t, int64_t id) {
-    return (id >= 0 && (size_t)id < t->count) ? t->lens[id] : -1;
-}
-void cst_strtab_bytes_get(StrTable* t, int64_t id, uint8_t* out) {
-    if (id >= 0 && (size_t)id < t->count)
-        std::memcpy(out, t->arena.data() + t->offs[id], (size_t)t->lens[id]);
-}
-
-}  // extern "C"
-
 // ------------------------------------------------------------------ I64Table
 
 struct I64Table {
@@ -325,48 +280,3 @@ struct I64Table {
         return dflt;
     }
 };
-
-extern "C" {
-
-I64Table* cst_i64_new(int64_t cap_hint) {
-    return new I64Table((size_t)(cap_hint > 0 ? cap_hint : 16));
-}
-void cst_i64_free(I64Table* t) { delete t; }
-int64_t cst_i64_len(I64Table* t) { return (int64_t)t->count; }
-
-int64_t cst_i64_get(I64Table* t, int64_t k, int64_t dflt) { return t->get(k, dflt); }
-void cst_i64_put(I64Table* t, int64_t k, int64_t v) { t->put(k, v); }
-int64_t cst_i64_del(I64Table* t, int64_t k, int64_t dflt) { return t->del(k, dflt); }
-
-void cst_i64_lookup_batch(I64Table* t, const int64_t* ks, int64_t n,
-                          int64_t dflt, int64_t* out) {
-    for (int64_t i = 0; i < n; i++) out[i] = t->get(ks[i], dflt);
-}
-
-void cst_i64_put_batch(I64Table* t, const int64_t* ks, const int64_t* vs,
-                       int64_t n) {
-    t->batch_begin((size_t)n);
-    size_t before = t->count;
-    for (int64_t i = 0; i < n; i++) t->put(ks[i], vs[i]);
-    t->batch_end((size_t)n, t->count - before);
-}
-
-// missing keys get sequential values starting at `next` (first-occurrence
-// order); returns the count of newly assigned keys.
-int64_t cst_i64_get_or_assign_batch(I64Table* t, const int64_t* ks, int64_t n,
-                                    int64_t next, int64_t* out) {
-    t->batch_begin((size_t)n);
-    int64_t start = next;
-    for (int64_t i = 0; i < n; i++) {
-        int64_t v = t->get(ks[i], INT64_MIN);
-        if (v == INT64_MIN) {
-            v = next++;
-            t->put(ks[i], v);
-        }
-        out[i] = v;
-    }
-    t->batch_end((size_t)n, (size_t)(next - start));
-    return next - start;
-}
-
-}  // extern "C"

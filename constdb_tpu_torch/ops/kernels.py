@@ -23,7 +23,8 @@ K4) and on the steady state (K3, K5):
 Build: each source compiles with `nvcc -shared` for sm_90a into its own
 shared library with a plain C interface, at first use, under
 `constdb_tpu_torch/_build/<hash of sources and flags>/`; all sources
-compile in parallel (one nvcc each).  The libraries load with ctypes and
+compile in parallel (one nvcc each, utils/build.py, under the build
+directory's file lock).  The libraries load with ctypes and
 launch on PyTorch's current stream with raw device pointers.  A failed
 build or a failed launch raises: nothing falls back.
 
@@ -39,13 +40,13 @@ import ctypes
 import hashlib
 import os
 import shutil
-import subprocess
 import threading
 import time
 from pathlib import Path
 
 import torch
 
+from ..utils.build import build_artifacts
 from . import bulk as B
 from . import dense as D
 
@@ -140,27 +141,12 @@ def build() -> float:
         if len(_libs) == len(SOURCES):
             return 0.0
         out_dir = _build_dir()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for name, src in SOURCES.items():
-            so = out_dir / f"lib{name}.so"
-            if so.exists():
-                continue
-            tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-            procs[name] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                tmp, so)
-        failed = []
-        for name, (p, tmp, so) in procs.items():
-            out, _ = p.communicate()
-            BUILD_LOG[name] = out
-            if p.returncode != 0:
-                failed.append(f"{name} (nvcc exit {p.returncode}):\n{out}")
-            else:
-                os.replace(tmp, so)
-        if failed:
-            raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+        logs = build_artifacts(
+            out_dir, {f"lib{name}.so": [_nvcc(), *NVCC_FLAGS, str(_CSRC / src)]
+                      for name, src in SOURCES.items()},
+            "CUDA kernel build")
+        BUILD_LOG.update({name: logs[f"lib{name}.so"] for name in SOURCES
+                          if f"lib{name}.so" in logs})
         for name in SOURCES:
             lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
             for fn, argtypes in _SIGNATURES.items():

@@ -3,12 +3,12 @@
 The port's own copy of the reference package's utils/checksum.py.  Two
 interchangeable algorithms, tagged in the snapshot header so the loader
 always verifies with the right one:
-  * "crc64"     — CRC-64/XZ, computed by the port's native library
-                  (native/crc64.cpp, built at first use by
-                  utils/native.py; a failed build raises);
+  * "crc64"     — CRC-64/XZ, computed by the port's native extension
+                  (native/crc64.cpp through native/pyext.cpp, built at
+                  first use by utils/native.py; a failed build raises);
   * "blake2b64" — 8-byte BLAKE2b via hashlib.
 
-The port always has its native library, so its default is CRC64 (the
+The port always has its native extension, so its default is CRC64 (the
 reference writes BLAKE2b-64 when its own library is not built).  Files
 of either package load in the other: the header names the algorithm.
 `_crc64_py` is the table-driven Python CRC the tests hold the native one
@@ -47,11 +47,10 @@ def _crc64_py(data: bytes, crc: int = 0) -> int:
 
 
 def crc64(data, crc: int = 0) -> int:
-    """CRC-64/XZ of `data`, continuing from `crc` (streamable)."""
+    """CRC-64/XZ of `data` (any C-contiguous buffer), continuing from
+    `crc` (streamable)."""
     from .native import load
-    if not isinstance(data, bytes):
-        data = bytes(data)
-    return load().lib.cst_crc64(crc, data, len(data))
+    return load().ext.crc64(crc, data)
 
 
 class StreamChecksum:

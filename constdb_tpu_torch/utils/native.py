@@ -1,27 +1,21 @@
 """The port's native C++ helpers: built with g++ at first use, then loaded.
 
-Two artifacts come from the sources in constdb_tpu_torch/native/:
+One artifact comes from the sources in constdb_tpu_torch/native/:
+cst_ext.so, the CPython extension compiled from pyext.cpp, which includes
+tables.cpp (the staging tables utils/tables.py binds) and crc64.cpp (the
+CRC utils/checksum.py calls).
 
-  * libconstdb_native.so  crc64.cpp + tables.cpp, loaded with ctypes
-                          (`cst_crc64` for utils/checksum.py, and the
-                          tables' plain C entry points);
-  * cst_ext.so            pyext.cpp (which includes tables.cpp), the
-                          CPython extension utils/tables.py binds.
-
-Both are built with the reference Makefile's flags into
-`constdb_tpu_torch/_build/<hash>/`, where the hash covers the sources,
-the flags, the compiler and the Python headers; the full hash is compiled
-in as CST_ABI_STAMP and checked when the artifacts load.  Concurrent
-first uses (test workers, several processes) serialize on a file lock in
-that directory; each artifact is written to a temporary name and moved
-into place with os.replace.  A failed build or a failed load raises:
-nothing falls back to the pure-Python tables.
+It is built with the reference Makefile's flags into
+`constdb_tpu_torch/_build/<hash>/` (utils/build.py: one g++, under the
+directory's file lock, moved into place with os.replace), where the hash
+covers every file of the sources' directory, the flags, the compiler and
+its version, and the Python headers; the full hash is compiled in as
+CST_ABI_STAMP and checked when the module loads.  A failed build or a
+failed load raises: nothing falls back to the pure-Python tables.
 """
 
 from __future__ import annotations
 
-import ctypes
-import fcntl
 import hashlib
 import importlib.util
 import os
@@ -33,18 +27,17 @@ from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
 
+from .build import build_artifacts
+
 SRC = Path(__file__).resolve().parent.parent / "native"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 CXXFLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra")
-LIB_SOURCES = ("crc64.cpp", "tables.cpp")
 EXT_SOURCE = "pyext.cpp"
-LIB_NAME = "libconstdb_native.so"
 EXT_NAME = "cst_ext.so"
 
 
 @dataclass
 class Native:
-    lib: ctypes.CDLL      # libconstdb_native.so
     ext: ModuleType       # the cst_ext extension module
     path: Path            # the build directory
 
@@ -70,64 +63,42 @@ def _py_include() -> str:
 
 
 def stamp_of(src: Path = SRC) -> str:
-    """sha256 over the compiler, the flags, the Python headers' path and
-    version, and every *.cpp of `src` (sorted by name)."""
+    """sha256 over the compiler, its version and target, the flags, the
+    Python headers' path and extension suffix, and every file of `src`
+    (sorted by name)."""
+    cxx = _cxx()
+    version = subprocess.run([cxx, "-dumpfullversion", "-dumpmachine"],
+                             capture_output=True, text=True, check=True)
     h = hashlib.sha256()
-    for part in (_cxx(), *CXXFLAGS, _py_include(),
+    for part in (cxx, version.stdout, *CXXFLAGS, _py_include(),
                  sysconfig.get_config_var("EXT_SUFFIX") or ""):
         h.update(part.encode() + b"\0")
-    for p in sorted(src.glob("*.cpp")):
-        h.update(p.name.encode() + b"\0")
-        h.update(p.read_bytes())
+    for p in sorted(src.iterdir()):
+        if p.is_file():
+            h.update(p.name.encode() + b"\0")
+            h.update(p.read_bytes())
     return h.hexdigest()
 
 
-def commands(src: Path, out_dir: Path, stamp: str) -> dict:
-    """artifact name -> the g++ command line that builds it into
-    `out_dir` (under a temporary name: the caller moves it in place)."""
-    define = f'-DCST_ABI_STAMP="{stamp}"'
-    tmp = f".{os.getpid()}.tmp"
-    return {
-        LIB_NAME: [_cxx(), *CXXFLAGS, define, "-shared", "-o",
-                   str(out_dir / (LIB_NAME + tmp)),
-                   *(str(src / s) for s in LIB_SOURCES)],
-        EXT_NAME: [_cxx(), *CXXFLAGS, "-Wno-unused-parameter", define,
-                   f"-I{_py_include()}", "-shared", "-o",
-                   str(out_dir / (EXT_NAME + tmp)), str(src / EXT_SOURCE)],
-    }
+def commands(src: Path, stamp: str) -> dict:
+    """artifact name -> the g++ command line that builds it (without its
+    output: utils/build.py appends a temporary one)."""
+    return {EXT_NAME: [_cxx(), *CXXFLAGS, "-Wno-unused-parameter",
+                       f'-DCST_ABI_STAMP="{stamp}"', f"-I{_py_include()}",
+                       "-shared", str(src / EXT_SOURCE)]}
 
 
 def build(src: Path = SRC, root: Path = BUILD_ROOT) -> tuple[Path, str]:
-    """Compile whichever artifact is missing (one g++ each, started
-    together) under the build directory's file lock.
+    """Compile the extension unless its build directory holds it.
     -> (build directory, stamp).  Raises RuntimeError on a failed build."""
     stamp = stamp_of(src)
     out_dir = root / stamp[:16]
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        procs = {}
-        for name, cmd in commands(src, out_dir, stamp).items():
-            if (out_dir / name).exists():
-                continue
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), Path(cmd[cmd.index("-o") + 1]))
-        failed = []
-        for name, (p, tmp) in procs.items():
-            out, _ = p.communicate()
-            if p.returncode != 0:
-                failed.append(f"{name} (g++ exit {p.returncode}):\n{out}")
-                tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, out_dir / name)
-        if failed:
-            raise RuntimeError("native build failed: " + "\n".join(failed))
+    build_artifacts(out_dir, commands(src, stamp), "native build")
     return out_dir, stamp
 
 
 def load(src: Path = SRC, root: Path = BUILD_ROOT) -> Native:
-    """Build if needed, then load both artifacts and check that each was
+    """Build if needed, then load the extension and check that it was
     built from these sources (its compiled-in stamp)."""
     key = (str(src), str(root))
     with _lock:
@@ -135,21 +106,13 @@ def load(src: Path = SRC, root: Path = BUILD_ROOT) -> Native:
         if got is not None:
             return got
         out_dir, stamp = build(src, root)
-        lib = ctypes.CDLL(str(out_dir / LIB_NAME))
-        lib.cst_abi_stamp.restype = ctypes.c_char_p
-        lib.cst_abi_stamp.argtypes = []
-        lib.cst_crc64.restype = ctypes.c_uint64
-        lib.cst_crc64.argtypes = [ctypes.c_uint64, ctypes.c_char_p,
-                                  ctypes.c_size_t]
         spec = importlib.util.spec_from_file_location(
             "cst_ext", out_dir / EXT_NAME)
         ext = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(ext)
-        for what, seen in ((LIB_NAME, lib.cst_abi_stamp().decode()),
-                           (EXT_NAME, ext.abi_stamp())):
-            if seen != stamp:
-                raise RuntimeError(f"{out_dir / what} carries build stamp "
-                                   f"{seen[:16]!r}, the sources "
-                                   f"{stamp[:16]!r}")
-        got = _loaded[key] = Native(lib, ext, out_dir)
+        seen = ext.abi_stamp()
+        if seen != stamp:
+            raise RuntimeError(f"{out_dir / EXT_NAME} carries build stamp "
+                               f"{seen[:16]!r}, the sources {stamp[:16]!r}")
+        got = _loaded[key] = Native(ext, out_dir)
         return got

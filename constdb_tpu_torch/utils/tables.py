@@ -7,12 +7,11 @@ so Python crosses into C once per column, not once per row; the
 extension walks a list of bytes directly.  Both are built with g++ at
 first use (utils/native.py).
 
-`StrTable`, `I64Dict` and `nonnull_mask` return the native tier.  A failed
-build or load raises: nothing falls back on its own.  The pure tier
-(`_PyStrTable`, `_PyI64Dict`, the generator in `nonnull_mask`) is the
-tests' oracle and an explicit choice: CONSTDB_TORCH_NO_NATIVE=1 selects
-it.  The reference's middle tier, its ctypes binding of the same tables,
-is not ported.
+`StrTable`, `I64Dict` and `nonnull_mask` always take the native tier.  A
+failed build or load raises: nothing falls back.  The pure tier
+(`_PyStrTable`, `_PyI64Dict`, `_nonnull_mask_py`) is the tests' oracle,
+called by name.  The reference's middle tier, its ctypes binding of the
+same tables, is not ported.
 
 API shape is numpy-first: batch methods take/return int64 arrays.
 """
@@ -21,15 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..conf import env_flag
-
 _I64 = np.int64
-
-
-def native_on() -> bool:
-    """The native tier, unless CONSTDB_TORCH_NO_NATIVE asks for the pure
-    one."""
-    return not env_flag("CONSTDB_TORCH_NO_NATIVE", False)
 
 
 def _ext():
@@ -37,14 +28,18 @@ def _ext():
     return load().ext
 
 
+def _nonnull_mask_py(items) -> np.ndarray:
+    return np.fromiter((v is not None for v in items), dtype=bool,
+                       count=len(items))
+
+
 def nonnull_mask(items: list) -> np.ndarray:
     """Writable bool ndarray marking entries that are not None.  Only an
     exact list takes the extension (its PyList_CheckExact); any other
-    sized iterable takes the generator on both tiers."""
-    if type(items) is list and native_on():
+    sized iterable takes the generator."""
+    if type(items) is list:
         return np.frombuffer(_ext().nonnull_mask(items), dtype=bool)
-    return np.fromiter((v is not None for v in items), dtype=bool,
-                       count=len(items))
+    return _nonnull_mask_py(items)
 
 
 def tier(table) -> str:
@@ -210,9 +205,5 @@ class _ExtI64Dict:
         return out, n_new
 
 
-def StrTable(cap_hint: int = 16):
-    return (_ExtStrTable if native_on() else _PyStrTable)(cap_hint)
-
-
-def I64Dict(cap_hint: int = 16):
-    return (_ExtI64Dict if native_on() else _PyI64Dict)(cap_hint)
+StrTable = _ExtStrTable
+I64Dict = _ExtI64Dict

@@ -11,6 +11,8 @@ falling back.
 """
 
 import shutil
+import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from constdb_tpu_torch.store.keyspace import KeySpace
 from constdb_tpu_torch.utils import checksum as PC
 from constdb_tpu_torch.utils import native as N
 from constdb_tpu_torch.utils import tables as PT
+from constdb_tpu_torch.utils.build import build_artifacts
 
 TIERS = {
     "port-native": (PT._ExtStrTable, PT._ExtI64Dict),
@@ -100,10 +103,9 @@ def test_i64_dict_equal_across_tiers(tier):
 
 
 @pytest.mark.parametrize("tier", list(TIERS))
-def test_nonnull_mask_equal_across_tiers(tier, monkeypatch):
-    if tier == "port-pure":
-        monkeypatch.setenv("CONSTDB_TORCH_NO_NATIVE", "1")
-    fn = RT.nonnull_mask if tier == "reference" else PT.nonnull_mask
+def test_nonnull_mask_equal_across_tiers(tier):
+    fn = {"port-native": PT.nonnull_mask, "port-pure": PT._nonnull_mask_py,
+          "reference": RT.nonnull_mask}[tier]
     rng = np.random.default_rng(3)
     for n in (0, 1, 17, 4096):
         items = [None if r < 0.3 else (b"" if r < 0.4 else b"x%d" % i)
@@ -119,13 +121,17 @@ def test_nonnull_mask_equal_across_tiers(tier, monkeypatch):
 
 
 def test_factories_take_the_native_tier_and_the_knob(monkeypatch):
+    """The factories always take the native tier: no knob selects the pure
+    one, not the reference's CONSTDB_NO_NATIVE either."""
     ks = KeySpace()
     for name in ("key_index", "member_index", "el_index", "tns_index"):
         assert PT.tier(getattr(ks, name)) == "native"
-    monkeypatch.setenv("CONSTDB_TORCH_NO_NATIVE", "1")
-    assert isinstance(PT.StrTable(), PT._PyStrTable)
-    assert isinstance(PT.I64Dict(), PT._PyI64Dict)
-    assert PT.tier(KeySpace().key_index) == "pure"
+    for knob in ("CONSTDB_NO_NATIVE", "CONSTDB_TORCH_NO_NATIVE"):
+        monkeypatch.setenv(knob, "1")
+    assert isinstance(PT.StrTable(), PT._ExtStrTable)
+    assert isinstance(PT.I64Dict(), PT._ExtI64Dict)
+    assert PT.tier(KeySpace().key_index) == "native"
+    assert PT.tier(PT._PyStrTable()) == "pure"
 
 
 def test_crc64_matches_reference_streamed():
@@ -138,6 +144,8 @@ def test_crc64_matches_reference_streamed():
         want = RC._crc64_py(data)
         assert PC.crc64(data) == PC._crc64_py(data) == want
         assert PC.crc64(bytearray(data)) == want
+        assert PC.crc64(memoryview(data)) == want
+        assert PC.crc64(np.frombuffer(data, np.uint8)) == want
         cuts = sorted(set(rng.integers(0, n + 1, 5).tolist()))
         crc = 0
         for a, b in zip([0] + cuts, cuts + [n]):
@@ -165,6 +173,40 @@ def test_broken_source_raises_from_the_build(tmp_path):
     assert not list((tmp_path / "build").rglob("*.so"))
 
 
+def test_stamp_covers_every_source_file(tmp_path):
+    """A header beside the sources, or a changed one, changes the stamp
+    (and so the build directory)."""
+    src = tmp_path / "native"
+    shutil.copytree(N.SRC, src)
+    first = N.stamp_of(src)
+    assert first == N.stamp_of(N.SRC)
+    (src / "extra.h").write_text("#define X 1\n")
+    second = N.stamp_of(src)
+    (src / "extra.h").write_text("#define X 2\n")
+    assert len({first, second, N.stamp_of(src)}) == 3
+
+
+def test_build_artifacts_builds_once_under_its_lock(tmp_path):
+    """Concurrent first uses build each artifact once; a failed command
+    raises, naming the artifact, and leaves no file behind."""
+    log = tmp_path / "runs"
+    fake = [sys.executable, "-c",
+            "import sys, time; open(sys.argv[1], 'a').write('x'); "
+            "time.sleep(0.2); open(sys.argv[3], 'w').write('built')",
+            str(log)]
+    out = tmp_path / "out"
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(lambda _: build_artifacts(out, {"a.so": fake}, "t"),
+                      range(4)))
+    assert log.read_text() == "x" and (out / "a.so").read_text() == "built"
+    bad = [sys.executable, "-c", "import sys; print('no'); sys.exit(3)"]
+    with pytest.raises(RuntimeError,
+                       match=r"(?s)t failed: b\.so .*exit 3.*no"):
+        build_artifacts(out, {"a.so": fake, "b.so": bad}, "t")
+    assert sorted(p.name for p in out.iterdir()) == ["a.so", "lock"]
+    assert log.read_text() == "x"
+
+
 def test_stale_build_is_refused(tmp_path, monkeypatch):
     """Artifacts whose compiled-in stamp differs from the sources' are
     refused at load."""
@@ -173,7 +215,6 @@ def test_stale_build_is_refused(tmp_path, monkeypatch):
     monkeypatch.setattr(N, "stamp_of", lambda src=N.SRC: stale)
     out = tmp_path / stale[:16]
     out.mkdir()
-    for name in (N.LIB_NAME, N.EXT_NAME):
-        shutil.copy(built / name, out / name)
+    shutil.copy(built / N.EXT_NAME, out / N.EXT_NAME)
     with pytest.raises(RuntimeError, match="build stamp"):
         N.load(N.SRC, tmp_path)
