@@ -87,11 +87,36 @@ Phases, one line each; any failure raises and exits non-zero:
                written; then a small file with raw sections loads
                through load_snapshot on the card and a copy with one
                key_ct byte flipped raises InvalidSnapshotChecksum.
+               Phase 8 keeps only its store's full_state_digest;
+  9. sharded catch-up         (a) phase 8's R files through the process
+               shards: ShardedKeySpace(default_shards(), "process",
+               engine_spec "cuda", groups of R), every worker a
+               forkserver process with its own CUDA engine folding with
+               K1 and K2 (dense_fold "cuda") and re-deriving
+               its sums with K4, raw sections decoded by the workers, then
+               each shard's export merged into a fresh serving store
+               through a parent engine (workload.sharded_file_catchup).
+               The pool starts outside the span; logged: its start
+               seconds and shard count, snapshot_merge_keys_per_sec over
+               submit -> flush and with the consolidation, the parent's
+               demux share, the summed per-shard family_secs, each
+               worker's peak device memory.  Checks: the oracle
+               subsample, 0 mismatches; the serving store's
+               full_state_digest equals phase 8's; every worker launched
+               K1, K2 and K4, every K1 and K2 stack R rows; no
+               shared-memory segment of the pool left after close().
+               (b) phase 5's batches in memory through "local" mode
+               with 4 device-fold shards: the oracle
+               subsample, K1, K2 and K4 launched, and the four shards'
+               digest matrices, summed, equal to phase 5's store's
+               full_state_digest.
 Every catch-up logs the tier of its store's staging tables and fails
 unless all are native, and counts the read-only columns the engine
 copies before pinning.  Then one JSON line of kernel records (launches
-by path, phase 8's as "catchup_files"), the run's total seconds, the
-nvidia-smi line, and the last line {"ok": true, "device": {...}}.
+by path, phase 8's as "catchup_files", phase 9's as "sharded_process"
+(the workers' and the parent's) and "sharded_local"), the run's total
+seconds, the nvidia-smi line, and the last line {"ok": true, "device":
+{...}}.
 
 Imports torch, numpy and the port only.
 """
@@ -1405,9 +1430,11 @@ def file_phase(dev, n_keys: int, n_rep: int, seed: int, fold: dict,
     label = "catch-up (snapshot files)"
     log(f"{label}: the files were written by this process, so their reads "
         "may hit the page cache")
-    out, eng, _store, _ = catchup(dev, n_keys, n_rep, seed, n_rep, "cuda",
-                                  True, label, files=paths, batches=batches)
+    out, eng, store, _ = catchup(dev, n_keys, n_rep, seed, n_rep, "cuda",
+                                 True, label, files=paths, batches=batches)
     eng.close()
+    out["digest"] = full_state_digest(store)
+    del store
     for k in ("merge_elems", "merge_counters", "segment_sum"):
         if not out["launches"][k]:
             raise AssertionError(f"{label} did not launch {k}")
@@ -1427,6 +1454,190 @@ def file_phase(dev, n_keys: int, n_rep: int, seed: int, fold: dict,
         f"{out['read_only_copies']} read-only columns copied before "
         f"pinning; K1 and K2 shapes equal phase 5's; NodeMeta of every "
         f"file as written")
+    return out
+
+
+def full_state_digest(store) -> int:
+    """store/digest.py full_state_digest: the whole logical state folded
+    to 64 bits, independent of the shard layout."""
+    from constdb_tpu_torch.store.digest import full_state_digest as fsd
+    return fsd(store)
+
+
+def shm_left(names) -> list:
+    """The pool's segments (created by it or handed over by a worker)
+    still in /dev/shm."""
+    return sorted(n for n in names if os.path.exists(f"/dev/shm/{n}"))
+
+
+def sharded_phase(dev, n_keys: int, n_rep: int, paths: list, batches,
+                  oracle: tuple, want_digest: int) -> dict:
+    """Phase 9a: the catch-up from phase 8's R files through the process
+    shards (default_shards() workers, one CUDA engine each, dense_fold
+    "cuda"), then consolidated into a fresh serving store through a
+    parent engine (workload.sharded_file_catchup)."""
+    import torch
+
+    from constdb_tpu_torch import workload as W
+    from constdb_tpu_torch.engine.cuda import TorchMergeEngine
+    from constdb_tpu_torch.ops import kernels as KN
+    from constdb_tpu_torch.store.keyspace import KeySpace
+    from constdb_tpu_torch.store.sharded_keyspace import (ShardedKeySpace,
+                                                          default_shards)
+    label = "sharded catch-up (process)"
+    n = default_shards()
+    t0 = time.perf_counter()
+    sks = ShardedKeySpace(n_shards=n, mode="process", engine_spec="cuda",
+                          group=n_rep, dense_fold="cuda", device=dev)
+    try:
+        # every worker up and its imports done; its CUDA context and the
+        # kernels' load come with its first merge, inside the span
+        pids = [s["pid"] for s in sks.host_secs_per_shard()]
+        start_s = time.perf_counter() - t0
+        log(f"{label}: {n} workers (default_shards(), {os.cpu_count()} "
+            f"cores) up in {start_s:.3f} s, pids {pids}")
+        serve, eng = KeySpace(), TorchMergeEngine(resident=True, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        KN.reset_launches()
+        t0 = time.perf_counter()
+        fc = W.sharded_file_catchup(sks, paths, n_rep, eng, serve)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        parent = dict(KN.LAUNCHES)
+        parent_peak = torch.cuda.max_memory_allocated(dev)
+        eng.close()
+    finally:
+        sks.close()
+    left = shm_left(sks.pool.shm_names)
+    if left:
+        raise AssertionError(f"{label}: shared-memory segments {left} of "
+                             f"{len(sks.pool.shm_names)} left after close()")
+    sub_keys, want = oracle
+    mism = W.compare_canonical(serve.canonical(keys=sub_keys), want)
+    if mism:
+        raise AssertionError(f"{label}: {mism} of {len(sub_keys)} keys "
+                             "differ from the CPU oracle")
+    digest = full_state_digest(serve)
+    if digest != want_digest:
+        raise AssertionError(f"{label}: serving store digest {digest:#x}, "
+                             f"phase 8's store {want_digest:#x}")
+    workers = fc["shard_secs"]
+    k_names = ("merge_elems", "merge_counters", "segment_sum")
+    for i, w in enumerate(workers):
+        if any(w["launches"][k] < 1 for k in k_names):
+            raise AssertionError(f"{label}: worker {i} launched "
+                                 f"{w['launches']}; each of K1, K2 and K4 "
+                                 "must launch")
+        shapes = w["fold_shapes"]["merge_elems"] + \
+            w["fold_shapes"]["merge_counters"]
+        if any(sh[0] != n_rep for sh in shapes):
+            raise AssertionError(f"{label}: worker {i} folded {shapes}; "
+                                 f"every K1 and K2 stack must hold R = "
+                                 f"{n_rep} rows")
+    if len({w["pid"] for w in workers}) != n:
+        raise AssertionError(f"{label}: replies from pids "
+                             f"{[w['pid'] for w in workers]}")
+    launches = {k: parent[k] + sum(w["launches"][k] for w in workers)
+                for k in parent}
+    fam: dict = {}
+    for w in workers:
+        for k, v in w["family_secs"].items():
+            fam[k] = fam.get(k, 0.0) + v
+    out = {"n_shards": n, "start_s": start_s, "wall_s": wall,
+           "merge_s": fc["merge_s"], "demux_s": fc["demux_s"],
+           "consolidate_s": fc["consolidate_s"],
+           "snapshot_merge_keys_per_sec": n_keys / fc["merge_s"],
+           "keys_per_s_with_consolidation":
+               n_keys / (fc["merge_s"] + fc["consolidate_s"]),
+           "demux_share": fc["demux_s"] / fc["merge_s"],
+           "family_secs_summed": {k: round(v, 3) for k, v in fam.items()},
+           "launches": launches, "parent_launches": parent,
+           "worker_launches": [w["launches"] for w in workers],
+           "worker_folds": [w["folds"] for w in workers],
+           "worker_peak_mem_bytes": [w["peak_mem_bytes"] for w in workers],
+           "parent_peak_mem_bytes": parent_peak,
+           "shm_segments": len(sks.pool.shm_names),
+           "verified_keys": len(sub_keys), "mismatches": mism,
+           "digest": digest}
+    log(f"{label}: {n_keys} keys x {n_rep} replicas from {len(paths)} "
+        f"files, {fc['chunks']} raw sections in jobs of {n_rep}: "
+        f"snapshot_merge_keys_per_sec {out['snapshot_merge_keys_per_sec']:.0f}"
+        f" (submit -> flush {fc['merge_s']:.3f} s), "
+        f"{out['keys_per_s_with_consolidation']:.0f} with consolidation "
+        f"({fc['consolidate_s']:.3f} s); parent demux (read, inflate) "
+        f"{fc['demux_s']:.3f} s ({out['demux_share']:.1%}); pool start "
+        f"{start_s:.3f} s (outside the span); summed per-shard family_secs "
+        f"{out['family_secs_summed']}; worker peak device memory "
+        f"{out['worker_peak_mem_bytes']} bytes, parent "
+        f"{parent_peak}; K1/K2/K4 launches per worker "
+        f"{[[w['launches'][k] for k in k_names] for w in workers]}, parent "
+        f"{[parent[k] for k in k_names]}; every K1/K2 stack R = {n_rep}; "
+        f"verified {len(sub_keys)} keys, 0 mismatches; digest {digest:#x} "
+        f"equals phase 8's; {len(sks.pool.shm_names)} shared-memory "
+        f"segments, none left")
+    log(f"{label}: per-worker secs "
+        f"{json.dumps(workers, default=str)}")
+    return out
+
+
+def local_phase(dev, n_keys: int, n_rep: int, batches, oracle: tuple,
+                want_digest: int) -> dict:
+    """Phase 9b: phase 5's batches in memory through "local" mode
+    with 4 shards (four device-fold engines in this process); the summed
+    shard digests must equal phase 5's store's."""
+    import numpy as np
+    import torch
+
+    from constdb_tpu_torch import workload as W
+    from constdb_tpu_torch.ops import kernels as KN
+    from constdb_tpu_torch.store import digest as D
+    from constdb_tpu_torch.store.sharded_keyspace import ShardedKeySpace
+    label = "sharded catch-up (local, 4 shards)"
+    chunks = W.chunk_batches(batches, CHUNK_KEYS)
+    sks = ShardedKeySpace(n_shards=4, mode="local", engine_spec="cuda",
+                          group=n_rep, dense_fold="cuda", device=dev)
+    try:
+        torch.cuda.synchronize()
+        KN.reset_launches()
+        t0 = time.perf_counter()
+        for c in chunks:
+            sks.submit(c)
+        sks.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(KN.LAUNCHES)
+        shapes = KN.SHAPES["merge_elems"] + KN.SHAPES["merge_counters"]
+        sub_keys, want = oracle
+        mism = W.compare_canonical(sks.canonical(keys=sub_keys), want)
+        mats = [D.state_digest_matrix(s, D.DIGEST_FANOUT, 1)
+                for s in sks.stores]
+        digest = int(D.sum_matrices(mats, D.DIGEST_FANOUT, 1).sum(
+            dtype=np.uint64))
+        secs = sks.host_secs_per_shard()
+    finally:
+        sks.close()
+    if mism:
+        raise AssertionError(f"{label}: {mism} of {len(sub_keys)} keys "
+                             "differ from the CPU oracle")
+    if digest != want_digest:
+        raise AssertionError(f"{label}: summed shard digest {digest:#x}, "
+                             f"phase 5's store {want_digest:#x}")
+    k_names = ("merge_elems", "merge_counters", "segment_sum")
+    if any(launches[k] < 4 for k in k_names) or \
+            any(sh[0] != n_rep for sh in shapes):
+        raise AssertionError(f"{label}: launches {launches}, K1/K2 shapes "
+                             f"{shapes}; each of K1, K2 and K4 must launch "
+                             f"in every shard, every stack with R = {n_rep}")
+    out = {"wall_s": wall, "keys_per_s": n_keys / wall,
+           "launches": launches, "folds": [x["folds"] for x in secs],
+           "verified_keys": len(sub_keys), "mismatches": mism,
+           "digest": digest}
+    log(f"{label}: {len(chunks)} chunks in groups of {n_rep}: {wall:.3f} s "
+        f"({out['keys_per_s']:.0f} keys/s), launches {launches}, folds "
+        f"per shard {out['folds']}, every K1/K2 stack R = {n_rep}; "
+        f"verified {len(sub_keys)} keys, 0 mismatches; summed shard "
+        f"digest {digest:#x} equals phase 5's store's")
     return out
 
 
@@ -1526,11 +1737,12 @@ def main() -> int:
     auto, eng, store, catch_batches = catchup(
         dev, args.keys, rep, args.seed, 4 * rep, "auto", False,
         "catch-up (auto)")
-    fold, eng2, _store2, _ = catchup(
+    fold, eng2, store2, _ = catchup(
         dev, args.keys, rep, args.seed, rep, "cuda", True,
         "catch-up (device fold)")
     eng2.close()
-    del eng2, _store2, _
+    fold_digest = full_state_digest(store2)
+    del eng2, store2, _
     for k in ("merge_elems", "merge_counters"):
         if not fold["launches"][k]:
             raise AssertionError(f"catch-up (device fold) did not launch {k}")
@@ -1557,6 +1769,12 @@ def main() -> int:
         files = file_phase(dev, args.keys, rep, args.seed, fold, paths,
                            fold_batches)
         corrupt_check(dev, file_dir, args.seed)
+        oracle = (W.subsample_keys(fold_batches[0].keys, args.keys),
+                  W.oracle_canonical(fold_batches, args.keys))
+        sharded = sharded_phase(dev, args.keys, rep, paths, fold_batches,
+                                oracle, files["digest"])
+        local = local_phase(dev, args.keys, rep, fold_batches, oracle,
+                            fold_digest)
     finally:
         shutil.rmtree(file_dir, ignore_errors=True)
     del fold_batches
@@ -1579,7 +1797,9 @@ def main() -> int:
                    "catchup_fold": fold["launches"][name],
                    "stream": stream["launches"][name],
                    "tensor": tensor["launches"][name],
-                   "catchup_files": files["launches"][name]}
+                   "catchup_files": files["launches"][name],
+                   "sharded_process": sharded["launches"][name],
+                   "sharded_local": local["launches"][name]}
         rec = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": sum(by_path.values()),

@@ -26,6 +26,9 @@ ENV_REGISTRY = {
     "CONSTDB_TORCH_TENSOR_POOL_MB": "resident tensor payload bytes above "
                                     "which the pools flush and drop "
                                     "(default 512)",
+    "CONSTDB_TORCH_SHARDS": "hash shards of a ShardedKeySpace (default: "
+                            "1 on <= 2 cores, else the core count, at "
+                            "most 64)",
 }
 
 

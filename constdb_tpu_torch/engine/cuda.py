@@ -688,11 +688,55 @@ class TorchMergeEngine:
         return self._stage_ex
 
     def close(self) -> None:
-        """Release the staging pool's threads (idempotent)."""
+        """Release the staging pool's threads and the pinned host buffers
+        (idempotent)."""
         ex = self._stage_ex
         if ex is not None:
             self._stage_ex = None
             ex.shutdown(wait=False)
+        self._release_pinned()
+
+    def _release_pinned(self) -> None:
+        """Drop the pinned staging ring and K1's fold slot once their last
+        copies have read them; the next upload pins anew.  The blocks go
+        back to PyTorch's pinned-memory cache of this process (a shard
+        worker empties that cache when its shard is freed)."""
+        for slot in (*self._ring, self._fold_slot):
+            if slot["ev"] is not None:
+                slot["ev"].synchronize()
+            slot["buf"] = None
+            slot["ev"] = None
+
+    # ------------------------------------------------------- release hooks
+
+    def release_device_pools(self, store: KeySpace) -> None:
+        """Memory reclaim (the reference's hard-watermark hook): flush the
+        resident state down to `store`, then drop the device mirrors, the
+        win-value pool, the tensor payload pools (the tensor epoch moves
+        on) and the pinned host buffers.  Everything refills lazily on
+        the next merge.  Loss-free: host state is exact before anything
+        drops."""
+        self.flush(store)
+        self._forget_resident()
+
+    def discard_resident(self) -> None:
+        """Forget every resident device state WITHOUT a flush and clear
+        `needs_flush`: only valid when the host store is discarded with it
+        (a freed shard, a reset for a full resync); a fresh store's
+        fam_ver could otherwise collide with a stale mirror's version."""
+        self._forget_resident()
+        self.needs_flush = False
+
+    def _forget_resident(self) -> None:
+        self._join_staging()
+        self._res.clear()
+        self._val_pool.clear()
+        self._pool_size = 0
+        self._pool_bytes = 0
+        self._el_del_touched.clear()
+        self._drop_tns_pools()
+        self._tns_read_cache = {}
+        self._release_pinned()
 
     def __del__(self):  # pragma: no cover - GC timing
         try:
@@ -2600,3 +2644,4 @@ class TorchMergeEngine:
             np.asarray(dt)[newly].tolist(),
             list(map(store.key_bytes.__getitem__, kids)),
             list(map(store.el_member.__getitem__, rws.tolist())))
+

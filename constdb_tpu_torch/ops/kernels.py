@@ -50,8 +50,8 @@ from ..utils.build import build_artifacts
 from . import bulk as B
 from . import dense as D
 
-__all__ = ["LAUNCHES", "SOURCES", "build", "fold_apply", "merge_elems",
-           "merge_lww",
+__all__ = ["LAUNCHES", "SHAPES", "SOURCES", "build", "fold_apply",
+           "merge_elems", "merge_lww",
            "merge_counters", "scatter_round", "scatter_pair_src",
            "segment_sum", "tensor_take_reduce", "reset_launches",
            "Segment", "PAIR_SRC", "PAIR", "MAX1", "MAX_SEGMENTS"]
@@ -70,6 +70,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # K3 its fused round launches, each under its reference name
 LAUNCHES = {"merge_elems": 0, "merge_counters": 0, "scatter_pair_src": 0,
             "segment_sum": 0, "tensor_take_reduce": 0}
+# [R, S, variant] of each fold_apply (K1) launch and [R, S] of each K2
+# launch since the last reset_launches()
+SHAPES: dict[str, list] = {"merge_elems": [], "merge_counters": []}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -115,6 +118,8 @@ class _Round(ctypes.Structure):
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for v in SHAPES.values():
+        v.clear()
 
 
 def _nvcc() -> str:
@@ -252,6 +257,8 @@ def fold_apply(at: torch.Tensor, an: torch.Tensor, idx: torch.Tensor,
             win.data_ptr(), _stream(at))
         _check_rc(lib, "fold_apply", rc)
         LAUNCHES["merge_elems"] += 1
+        SHAPES["merge_elems"].append(
+            (rows, cols, "registers" if dt is None else "elements"))
     return win
 
 
@@ -311,6 +318,7 @@ def merge_counters(vals: torch.Tensor, ts: torch.Tensor):
             o_val.data_ptr(), o_t.data_ptr(), _stream(vals))
         _check_rc(lib, "merge_counters", rc)
         LAUNCHES["merge_counters"] += 1
+        SHAPES["merge_counters"].append((rows, cols))
     return o_val, o_t
 
 

@@ -1,0 +1,537 @@
+"""Hash-sharded keyspace: N independent KeySpace + merge engine pairs.
+
+Per-key CRDT merges commute and never read another key's state, so the
+host side of a snapshot merge (key resolution, staging, the snapshot
+decode, the flush's host work) shards by key hash.
+
+Layout:
+  * `shard_of` / `shard_ids` — the ONE hash every router uses (crc32,
+    process-independent, and the reference package's, so a key lands on
+    the same shard in both): batch splitting, key-routed canonical
+    reads, del-tombstone fan-out.
+  * `extract_shard` — one shard's sub-batch of a ColumnarBatch, with
+    counter/element rows re-pointed at shard-local key positions.  Chunks
+    with equal identity tokens produce equal sub-batches, so the engine's
+    per-shape memoization and aligned-fold clustering keep working INSIDE
+    each shard.
+  * `ShardedKeySpace` — the facade a sharded catch-up drives
+    (workload.sharded_file_catchup, persist/snapshot.load_snapshot).
+    Three modes:
+      - n_shards == 1: one KeySpace + one engine, batches pass through
+        untouched (no hashing, no splitting): byte-identical to driving
+        the engine directly.
+      - "local": N stores + engines in this process, on one device,
+        driven one after another.  What overlaps: kernel launches and
+        uploads are enqueued on the current stream without waiting, so
+        shard s+1's host staging runs while shard s's last kernels
+        drain.  What does not: every pinned download waits for the
+        stream (K1's winner column in each fold, the flush), all shards
+        share that stream, and one thread does every shard's host work.
+      - "process": N worker processes (parallel/host_pool.py), one
+        engine and so one CUDA context each.
+
+Ingest cadence: `submit(batch)` buffers `group` chunks, then ships the
+group — process mode broadcasts ONE shared-memory segment to every worker
+and consumes per-shard completions as they land (bounded in-flight
+window).  `flush()` drains everything and applies engine flushes, after
+which reads are exact.
+
+Engines by `engine_spec` (parallel/host_pool.py `_make_engine`): "cpu"
+the CpuMergeEngine, "cuda" (default) a resident TorchMergeEngine with
+`dense_fold` on `device`; None is the card (raises without one), "cpu"
+runs the plain versions on the host.  There is no fallback.
+"""
+
+from __future__ import annotations
+
+import os
+import zlib
+from typing import Optional
+
+import numpy as np
+
+from ..engine.base import ColumnarBatch
+from .keyspace import KeySpace
+
+_I64 = np.int64
+_U8 = np.uint8
+
+MAX_SHARDS = 64  # shard ids travel as uint8 columns; 64 cores is plenty
+
+
+def default_shards() -> int:
+    """CONSTDB_TORCH_SHARDS, defaulting to 1 (the single-keyspace path)
+    on <= 2 cores — process-parallel merge needs spare cores to help —
+    and to the core count (capped) above that."""
+    from ..conf import env_str
+    env = env_str("CONSTDB_TORCH_SHARDS", "")
+    if env:
+        return max(1, min(int(env), MAX_SHARDS))
+    ncpu = os.cpu_count() or 1
+    if ncpu <= 2:
+        return 1
+    return min(ncpu, MAX_SHARDS)
+
+
+def shard_of(key: bytes, n_shards: int) -> int:
+    """Deterministic, process-independent key -> shard."""
+    return zlib.crc32(key) % n_shards
+
+
+def shard_ids(keys: list, n_shards: int) -> np.ndarray:
+    """Vectorized shard column (uint8) for a key list."""
+    crc = zlib.crc32
+    n = len(keys)
+    out = np.fromiter((crc(k) for k in keys), dtype=np.uint32, count=n)
+    return (out % n_shards).astype(_U8)
+
+
+def extract_shard(batch: ColumnarBatch, sids: np.ndarray,
+                  del_sids: Optional[np.ndarray],
+                  shard: int, memo: Optional[dict] = None) -> ColumnarBatch:
+    """The sub-batch of `batch` owned by `shard`, per the `sids` shard
+    column (one uint8 per batch key position; `del_sids` covers
+    del_keys).  Counter/element rows re-point at shard-local key
+    positions.  Identity tokens survive (suffixed with the shard), so
+    replica chunks sharing a token still resolve once per shard.
+
+    `memo`: a caller-scoped dict amortizing the REPLICA-INVARIANT parts
+    of extraction — the key selection + posmap + extracted key list (per
+    key token) and the element-row mask + extracted member list (per
+    element token).  Replica snapshots of one keyspace share those
+    planes, so with R replicas the per-item Python work runs once, not R
+    times.  Equal tokens MUST imply equal plane content (the engine's
+    contract); callers own the memo's lifetime."""
+    nk = batch.n_keys
+    sub = ColumnarBatch()
+    sub.rows_unique_per_slot = batch.rows_unique_per_slot
+    if batch.key_shape is not None:
+        sub.key_shape = ("shard", shard, batch.key_shape)
+    if batch.el_shape is not None:
+        sub.el_shape = ("shard", shard, batch.el_shape)
+    sub.shape_refs = batch.shape_refs
+    # False is exact for any subset of an all-None list; anything else
+    # re-scans (a lone dict value elsewhere must not taint this shard)
+    sub.el_has_vals = False if batch.el_has_vals is False else None
+
+    kkey = ("k", batch.key_shape, shard) \
+        if memo is not None and batch.key_shape is not None else None
+    cached = memo.get(kkey) if kkey is not None else None
+    if cached is None:
+        sel = np.nonzero(sids == shard)[0]
+        keys = list(map(batch.keys.__getitem__, sel.tolist()))
+        posmap = np.full(nk, -1, dtype=_I64)
+        posmap[sel] = np.arange(len(sel), dtype=_I64)
+        cached = (sel, keys, posmap)
+        if kkey is not None:
+            memo[kkey] = cached
+    sel, keys, posmap = cached
+    sub.keys = keys  # shared across sub-batches: engine reads only
+    sub.key_enc = np.ascontiguousarray(batch.key_enc[sel])
+    sub.key_ct = np.ascontiguousarray(batch.key_ct[sel])
+    sub.key_mt = np.ascontiguousarray(batch.key_mt[sel])
+    sub.key_dt = np.ascontiguousarray(batch.key_dt[sel])
+    sub.key_expire = np.ascontiguousarray(batch.key_expire[sel])
+    sub.reg_val = list(map(batch.reg_val.__getitem__, sel.tolist()))
+    sub.reg_t = np.ascontiguousarray(batch.reg_t[sel])
+    sub.reg_node = np.ascontiguousarray(batch.reg_node[sel])
+
+    if len(batch.cnt_ki):
+        cki = np.asarray(batch.cnt_ki)
+        cm = np.nonzero(sids[cki] == shard)[0]
+        sub.cnt_ki = posmap[cki[cm]]
+        for col in ("cnt_node", "cnt_val", "cnt_uuid", "cnt_base",
+                    "cnt_base_t"):
+            setattr(sub, col,
+                    np.ascontiguousarray(np.asarray(getattr(batch, col))[cm]))
+
+    if len(batch.el_ki):
+        eki = np.asarray(batch.el_ki)
+        ekey = ("e", batch.el_shape, batch.key_shape, shard) \
+            if memo is not None and batch.el_shape is not None else None
+        ecached = memo.get(ekey) if ekey is not None else None
+        if ecached is None:
+            em = np.nonzero(sids[eki] == shard)[0]
+            members = list(map(batch.el_member.__getitem__, em.tolist()))
+            ecached = (em, members, posmap[eki[em]])
+            if ekey is not None:
+                memo[ekey] = ecached
+        em, members, sub.el_ki = ecached
+        sub.el_member = members  # shared: engine reads only
+        if batch.el_has_vals is False:
+            # exact: any subset of an all-None column is all None — skip
+            # the per-item extraction entirely
+            sub.el_val = [None] * len(em)
+        else:
+            sub.el_val = list(map(batch.el_val.__getitem__, em.tolist()))
+        for col in ("el_add_t", "el_add_node", "el_del_t"):
+            setattr(sub, col,
+                    np.ascontiguousarray(np.asarray(getattr(batch, col))[em]))
+
+    if len(batch.tns_ki):
+        tki = np.asarray(batch.tns_ki)
+        tm = np.nonzero(sids[tki] == shard)[0]
+        if len(tm):
+            sub.tns_ki = posmap[tki[tm]]
+            for col in ("tns_node", "tns_uuid", "tns_cnt"):
+                setattr(sub, col, np.ascontiguousarray(
+                    np.asarray(getattr(batch, col))[tm]))
+            idx = tm.tolist()
+            sub.tns_cfg = [batch.tns_cfg[i] for i in idx]
+            sub.tns_payload = [batch.tns_payload[i] for i in idx]
+
+    if batch.del_keys:
+        if del_sids is None:
+            raise ValueError(
+                "batch carries del_keys: the caller must supply their "
+                "shard column (shard_ids(batch.del_keys, n_shards))")
+        dsel = np.nonzero(del_sids == shard)[0]
+        if len(dsel):
+            sub.del_keys = list(map(batch.del_keys.__getitem__,
+                                    dsel.tolist()))
+            sub.del_t = np.ascontiguousarray(
+                np.asarray(batch.del_t)[dsel])
+    return sub
+
+
+def keyspace_state_bytes(ks: KeySpace):
+    """Exact store state — every numeric column byte plus the object
+    planes.  Stricter than canonical(): the differential tests pin the
+    sharded paths BYTE-identical to the single-keyspace path, not merely
+    semantically equal."""
+    n, c, e, t = ks.keys.n, ks.cnt.n, ks.el.n, ks.tns.n
+    return (
+        {name: ks.keys.col(name)[:n].tobytes()
+         for name in ("enc", "ct", "mt", "dt", "expire", "rv_t", "rv_node",
+                      "cnt_sum")},
+        {name: ks.cnt.col(name)[:c].tobytes()
+         for name in ("kid", "node", "val", "uuid", "base", "base_t")},
+        {name: ks.el.col(name)[:e].tobytes()
+         for name in ("kid", "add_t", "add_node", "del_t")},
+        {name: ks.tns.col(name)[:t].tobytes()
+         for name in ("kid", "node", "uuid", "cnt")},
+        list(ks.key_bytes), list(ks.reg_val), list(ks.el_member),
+        list(ks.el_val),
+        [None if p is None else p.tobytes() for p in ks.tns_payload],
+        dict(ks.key_deletes), sorted(ks.garbage),
+    )
+
+
+class ShardedKeySpace:
+    """N hash-partitioned KeySpace + MergeEngine pairs behind one ingest
+    facade (see module docstring for modes and cadence).  `device` and
+    `dense_fold` go to every engine the facade builds, in every mode;
+    `engine_factory` (n_shards == 1 and "local") replaces the spec's
+    engine."""
+
+    def __init__(self, n_shards: Optional[int] = None, mode: str = "auto",
+                 engine_spec: str = "cuda", engine_factory=None,
+                 group: int = 8, dense_fold: str = "auto", device=None):
+        self.n_shards = default_shards() if n_shards is None \
+            else max(1, min(int(n_shards), MAX_SHARDS))
+        if mode == "auto":
+            mode = "process" if self.n_shards > 1 else "local"
+        self.mode = mode if self.n_shards > 1 else "local"
+        if self.mode not in ("local", "process"):
+            raise ValueError(f"unknown shard mode {mode!r}")
+        self.engine_spec = engine_spec
+        self.dense_fold = dense_fold
+        self.device = device
+        self._engine_factory = engine_factory
+        self.group = max(1, group)
+        self._buf: list[ColumnarBatch] = []
+        self._sid_memo: dict = {}   # key_shape -> (sids, pin)
+        self._tok_serial = 0
+        self.pool = None
+        # in-process shards (n_shards == 1 and "local"): store s is
+        # merged by engine s
+        self.stores: list[KeySpace] = []
+        self.engines: list = []
+        if self.mode == "process":
+            from ..parallel.host_pool import HostShardPool
+            self.pool = HostShardPool(self.n_shards,
+                                      engine_spec=engine_spec,
+                                      dense_fold=dense_fold, device=device)
+        else:
+            self._new_shards()
+
+    def _new_shards(self) -> None:
+        self.stores = [KeySpace() for _ in range(self.n_shards)]
+        if self._engine_factory is not None:
+            self.engines = [self._engine_factory()
+                            for _ in range(self.n_shards)]
+            return
+        from ..parallel.host_pool import _make_engine
+        self.engines = [_make_engine(self.engine_spec, self.device,
+                                     self.dense_fold)
+                        for _ in range(self.n_shards)]
+
+    # -------------------------------------------------------------- ingest
+
+    def submit(self, batch: ColumnarBatch) -> None:
+        """Queue one columnar batch; ships when `group` are buffered."""
+        self._buf.append(batch)
+        if len(self._buf) >= self.group:
+            self._ship()
+
+    def submit_raw(self, payload: bytes) -> None:
+        """Queue one ENCODED batch section (snapshot codec bytes).  In
+        process mode the payload ships to the workers as-is — they decode
+        AND hash the keys in parallel, so the parent pays only the
+        buffer copy; other modes decode here."""
+        if self.pool is None:
+            from ..persist.snapshot import _decode_batch
+            self.submit(_decode_batch(payload))
+            return
+        self._buf.append(bytes(payload))
+        if len(self._buf) >= self.group:
+            self._ship()
+
+    def submit_batches(self, batches: list) -> None:
+        for b in batches:
+            self.submit(b)
+
+    def _sids_for(self, batch: ColumnarBatch) -> np.ndarray:
+        """Shard column for a batch's keys, memoized by identity token
+        (replica chunks of one keyspace share tokens — hash once, not
+        once per replica).  Memo entries pin the parent planes via
+        shape_refs so a recycled id can never alias; the memo clears at
+        every group boundary, which bounds what it pins to one group."""
+        tok = batch.key_shape
+        if tok is None:
+            return shard_ids(batch.keys, self.n_shards)
+        hit = self._sid_memo.get(tok)
+        if hit is not None:
+            return hit[0]
+        sids = shard_ids(batch.keys, self.n_shards)
+        self._sid_memo[tok] = (sids, batch.shape_refs)
+        return sids
+
+    def _ship(self) -> None:
+        batches, self._buf = self._buf, []
+        if not batches:
+            return
+        if self.n_shards == 1:
+            self.engines[0].merge_many(self.stores[0], batches)
+            return
+        if self.pool is None:
+            sid_cols = [self._sids_for(b) for b in batches]
+            dsid_cols = [shard_ids(b.del_keys, self.n_shards)
+                         if b.del_keys else None for b in batches]
+            for s in range(self.n_shards):
+                subs = [sub for b, sids, dsids in
+                        zip(batches, sid_cols, dsid_cols)
+                        if (sub := extract_shard(b, sids, dsids, s)).n_rows
+                        or sub.del_keys]
+                if subs:
+                    self.engines[s].merge_many(self.stores[s], subs)
+            self._sid_memo.clear()
+            return
+        # process mode: encode once, broadcast the segment to every worker.
+        # Bytes planes shared by replica chunks (same identity token —
+        # the keys of a range, its member list) are encoded ONCE per job
+        # and referenced by plane id: with R replicas both the parent's
+        # encode and every worker's decode do 1/R of the per-item work.
+        from ..persist.snapshot import _encode_batch, _write_bytes_list
+        from ..utils.varint import write_uvarint
+        planes: list = []
+        plane_of: dict = {}
+        entries = []
+        pins = []
+
+        def plane_id(kind, tok, items) -> int:
+            pid = plane_of.get((kind, tok))
+            if pid is None:
+                buf = bytearray()
+                write_uvarint(buf, len(items))
+                _write_bytes_list(buf, items)
+                pid = len(planes)
+                planes.append(bytes(buf))
+                plane_of[(kind, tok)] = pid
+            return pid
+
+        for b in batches:
+            if isinstance(b, bytes):  # raw section payload: workers
+                entries.append((b, None, None, None, -1, -1))
+                continue  # decode + hash it themselves, in parallel
+            # identity tokens are rewritten to run-unique serials: the
+            # parent's id()-based tuples are only unique while the parent
+            # objects live, but a serial handed to a worker stays valid
+            # forever (equal serial <=> equal parent token within this
+            # group, guaranteed by the pins below)
+            tok_k = self._remap_token(b.key_shape)
+            tok_e = self._remap_token(b.el_shape)
+            kpid = plane_id("k", tok_k, b.keys) if tok_k is not None else -1
+            epid = plane_id("e", tok_e, b.el_member) \
+                if tok_e is not None and len(b.el_ki) else -1
+            payload = bytes(_encode_batch(b, skip_keys=kpid >= 0,
+                                          skip_members=epid >= 0))
+            entries.append((payload, tok_k, tok_e, b.el_has_vals,
+                            kpid, epid))
+            pins.append(b.shape_refs)
+        self.pool.submit_group(planes, entries, pins)
+        self._sid_memo.clear()
+        self._tok_map = {}
+
+    def _remap_token(self, tok):
+        if tok is None:
+            return None
+        m = getattr(self, "_tok_map", None)
+        if m is None:
+            m = self._tok_map = {}
+        got = m.get(tok)
+        if got is None:
+            self._tok_serial += 1
+            got = m[tok] = ("tok", self._tok_serial)
+        return got
+
+    def barrier(self) -> None:
+        """Ship any partial group and drain in-flight merges."""
+        self._ship()
+        if self.pool is not None:
+            self.pool.barrier()
+
+    def flush(self) -> None:
+        """Barrier + engine flush on every shard: reads are exact after
+        this returns."""
+        self.barrier()
+        if self.pool is not None:
+            self.pool.call_all("flush")
+        for eng, ks in zip(self.engines, self.stores):
+            if getattr(eng, "needs_flush", False):
+                eng.flush(ks)
+
+    # --------------------------------------------------------------- reads
+
+    def canonical(self, keys=None) -> dict:
+        """Union of per-shard canonical states (shards hold disjoint
+        keys).  `keys` routes each key to its owning shard.  Implicitly
+        flushes: reads are exact, whichever mode is active."""
+        if self.pool is not None:
+            self.flush()  # ship the partial buffer + worker engine flush
+            if keys is None:
+                parts = self.pool.call_all("canonical", None)
+            else:
+                per = self._route_keys(keys)
+                parts = [self.pool.call_one(s, "canonical", per[s])
+                         for s in range(self.n_shards) if per[s]]
+            out: dict = {}
+            for p in parts:
+                out.update(p)
+            return out
+        self.flush()
+        out = {}
+        if keys is None:
+            for ks in self.stores:
+                out.update(ks.canonical())
+            return out
+        per = self._route_keys(keys)
+        for s, ks in enumerate(self.stores):
+            if per[s]:
+                out.update(ks.canonical(keys=per[s]))
+        return out
+
+    def _route_keys(self, keys) -> list[list]:
+        per: list[list] = [[] for _ in range(self.n_shards)]
+        if self.n_shards == 1:
+            per[0] = list(keys)
+            return per
+        for k in keys:
+            per[shard_of(k, self.n_shards)].append(k)
+        return per
+
+    def state_bytes_per_shard(self) -> list:
+        """Per-shard exact state (differential tests)."""
+        self.flush()
+        if self.pool is not None:
+            return self.pool.call_all("state_bytes")
+        return [keyspace_state_bytes(ks) for ks in self.stores]
+
+    def host_secs_per_shard(self) -> list[dict]:
+        """Per-shard engine timers and counters (family_secs, stage_secs,
+        bytes, folds, ...), to see whether the host work split across
+        cores.  Process mode adds each worker's kernel launches, the
+        shapes of its K1 and K2 launches, its peak device memory and its
+        pid (parallel/host_pool.py)."""
+        if self.pool is not None:
+            return self.pool.call_all("secs")
+        from ..parallel.host_pool import engine_secs
+        return [engine_secs(e) for e in self.engines]
+
+    # ------------------------------------------------------- consolidation
+
+    def export_batches(self):
+        """Whole-state columnar export of every shard (one batch per
+        shard, disjoint keys) — the consolidation feed: a node that
+        sharded a catch-up merges these N deduplicated batches into its
+        serving keyspace in one engine pass.  Materializes ALL shards at
+        once; large-state consolidation should stream
+        `export_shard_batch(s, free=True)` shard by shard instead."""
+        self.flush()
+        if self.pool is not None:
+            from ..persist.snapshot import _decode_batch
+            return [_decode_batch(p) for p in self.pool.export_all()]
+        from ..engine.base import batch_from_keyspace
+        return [batch_from_keyspace(ks) for ks in self.stores]
+
+    def export_shard_batch(self, shard: int, free: bool = False):
+        """ONE shard's whole-state export.  `free=True` drops that
+        shard's store (and engine state) right after the export, so a
+        streaming consolidation holds at most one shard's state twice —
+        the N-shard snapshot of `export_batches` would double the whole
+        keyspace's footprint at exactly the multi-GB scale the sharded
+        ingest targets."""
+        self.flush()
+        if self.pool is not None:
+            from ..persist.snapshot import _decode_batch
+            payload = self.pool.export_shard(shard)
+            if free:
+                self.pool.call_one(shard, "reset")
+            return _decode_batch(payload)
+        from ..engine.base import batch_from_keyspace
+        b = batch_from_keyspace(self.stores[shard])
+        if free:
+            eng = self.engines[shard]
+            if hasattr(eng, "discard_resident"):
+                eng.discard_resident()  # flushed above: nothing unsynced
+            self.stores[shard] = KeySpace()
+        return b
+
+    def consolidate_into(self, ks: KeySpace, engine) -> None:
+        """Merge every shard's merged state into `ks` through `engine`
+        (the caller flushes a deferring engine).  Shard exports are
+        deduplicated (one row per slot) and disjoint, so this is a single
+        pass regardless of how many replica snapshots fed the shards."""
+        batches = [b for b in self.export_batches()
+                   if b.n_rows or b.del_keys]
+        if not batches:
+            return
+        if hasattr(engine, "merge_many"):
+            engine.merge_many(ks, batches)
+        else:  # pragma: no cover - minimal engines
+            for b in batches:
+                engine.merge(ks, b)
+
+    # ----------------------------------------------------------- lifecycle
+
+    def reset(self) -> None:
+        """Fresh stores AND engines on every shard (engine timers and
+        counters restart, resident state drops)."""
+        self._buf.clear()
+        self._sid_memo.clear()
+        if self.pool is not None:
+            self.pool.call_all("reset")
+            self.pool.rows_merged = [0] * self.n_shards
+            return
+        self._close_engines()
+        self._new_shards()
+
+    def _close_engines(self) -> None:
+        for eng in self.engines:
+            if hasattr(eng, "close"):
+                eng.close()
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.close()
+        self._close_engines()

@@ -9,7 +9,9 @@ N-key keyspace, 40% PN-counters, 30% LWW registers, 30% sets of
 `write_replica_files` and `file_catchup` take the same catch-up through
 snapshot files: one file per replica, read back through one
 `SectionDemux` each, the replicas' chunks interleaved as
-`chunk_batches` interleaves them.
+`chunk_batches` interleaves them.  `sharded_file_catchup` takes it
+through a hash-sharded store (store/sharded_keyspace.py) and then
+consolidates the shards into one serving store.
 
 The steady state has two more generators (see their docstrings):
 `make_stream_workload`, a peer's replication stream as the coalescer
@@ -233,6 +235,64 @@ def file_catchup(eng, store: KeySpace, paths, group: int) -> dict:
         for f in files:
             f.close()
     return {"decode_s": decode_s, "chunks": n_chunks,
+            "metas": [d.meta for d in demux],
+            "records": [d.replica_rows for d in demux]}
+
+
+def sharded_file_catchup(sks, paths, group: int, serve_eng,
+                         serve_store: KeySpace) -> dict:
+    """A sharded catch-up from R snapshot files into a serving store, the
+    shape of a replica link's sharded snapshot apply: one SectionDemux
+    (raw_batches=True) per file, their raw sections interleaved chunk by
+    chunk as in file_catchup, each handed undecoded to `sks.submit_raw`
+    (`sks` a ShardedKeySpace with `group` chunks a job), then
+    `sks.flush()`; then each shard's export (`export_shard_batch(s,
+    free=True)`) merges into `serve_store` through `serve_eng`, which is
+    flushed at the end.  -> {"demux_s": seconds inside the demuxes'
+    next() (read and inflate; the workers decode), "merge_s": wall from
+    the first section to the end of the flush, "consolidate_s": the
+    exports and their merge, "chunks": sections submitted, "shard_secs":
+    sks.host_secs_per_shard() after the flush (the exports free the
+    shards' engines), "metas", "records": as file_catchup}."""
+    if sks.group != group:
+        raise ValueError(f"the sharded store ships {sks.group}-chunk jobs, "
+                         f"the catch-up asks for {group}")
+    files = [open(p, "rb") for p in paths]
+    try:
+        t0 = time.perf_counter()
+        demux = [SectionDemux(f, raw_batches=True) for f in files]
+        live = [d.batches() for d in demux]
+        demux_s = 0.0
+        n_chunks = 0
+        while live:
+            still = []
+            for g in live:
+                t1 = time.perf_counter()
+                c = next(g, None)
+                demux_s += time.perf_counter() - t1
+                if c is None:
+                    continue
+                still.append(g)
+                sks.submit_raw(c)
+                n_chunks += 1
+            live = still
+        sks.flush()
+        merge_s = time.perf_counter() - t0
+    finally:
+        for f in files:
+            f.close()
+    # before the exports free the shards' engines
+    shard_secs = sks.host_secs_per_shard()
+    t0 = time.perf_counter()
+    for s in range(sks.n_shards):
+        b = sks.export_shard_batch(s, free=True)
+        if b.n_rows or b.del_keys:
+            serve_eng.merge_many(serve_store, [b])
+    if getattr(serve_eng, "needs_flush", False):
+        serve_eng.flush(serve_store)
+    return {"demux_s": demux_s, "merge_s": merge_s,
+            "consolidate_s": time.perf_counter() - t0, "chunks": n_chunks,
+            "shard_secs": shard_secs,
             "metas": [d.meta for d in demux],
             "records": [d.replica_rows for d in demux]}
 

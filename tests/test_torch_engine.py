@@ -542,3 +542,92 @@ def test_h2d_packed_stack_rows():
     for got, want in zip(d32, (ids, np.arange(5))):
         assert got.dtype == torch.int32
         assert np.array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------------------ release hooks
+
+
+def _hook_steps():
+    """The aligned-counter catch-up's four merge groups (reference
+    chunks)."""
+    return _catchup(True)[1]
+
+
+@pytest.mark.parametrize("fold", ["auto", "cuda"])
+def test_release_device_pools_between_merges(fold):
+    """merge -> release_device_pools -> merge gives the canonical() and
+    sums of the same merges with no release, and of the reference engine
+    with its own release at the same point."""
+    steps = _hook_steps()
+    out = []
+    for release in (False, True):
+        eng = TorchMergeEngine(resident=True, dense_fold=fold, device="cpu")
+        ks = PortKeySpace()
+        for i, group in enumerate(steps):
+            if release and i == 2:
+                epoch = eng._tns_epoch
+                eng.release_device_pools(ks)
+                assert not eng.needs_flush and eng._res == {}
+                assert eng._val_pool == [] and eng._tns_epoch == epoch + 1
+            eng.merge_many(ks, [port_batch(b) for b in group])
+        eng.flush(ks)
+        eng.close()
+        out.append((ks.canonical(), sums(ks)))
+    assert out[0] == out[1]
+    ref = TpuMergeEngine(resident=True, dense_fold="xla", steady=False)
+    ks = KeySpace()
+    for i, group in enumerate(steps):
+        if i == 2:
+            ref.release_device_pools(ks)
+        ref.merge_many(ks, group)
+    ref.flush(ks)
+    assert out[1] == (ks.canonical(), sums(ks))
+
+
+def test_discard_resident_leaves_no_stale_mirror():
+    """After discard_resident, a fresh store merges exactly as it would
+    through a fresh engine: no mirror of the discarded store survives
+    (its recorded plane versions would match the fresh store's)."""
+    steps = [[port_batch(b) for b in g] for g in _hook_steps()]
+    eng = TorchMergeEngine(resident=True, device="cpu")
+    eng.merge_many(PortKeySpace(), steps[0] + steps[1])
+    assert eng.needs_flush and eng._res
+    eng.discard_resident()
+    assert not eng.needs_flush and eng._res == {} and eng._val_pool == []
+    got = PortKeySpace()
+    for group in steps[2:]:
+        eng.merge_many(got, group)
+    eng.flush(got)
+    want = PortKeySpace()
+    fresh = TorchMergeEngine(resident=True, device="cpu")
+    for group in steps[2:]:
+        fresh.merge_many(want, group)
+    fresh.flush(want)
+    assert got.canonical() == want.canonical() and sums(got) == sums(want)
+
+
+def test_release_and_close_drop_pinned_buffers():
+    """release_device_pools and close() leave no staging-ring slot and
+    no fold slot held (on the CPU device the slots are filled by hand:
+    only CUDA uploads pin)."""
+    def fill(eng):
+        for slot in (*eng._ring, eng._fold_slot):
+            slot["buf"] = torch.empty(1 << 16, dtype=torch.uint8)
+
+    def held(eng):
+        return [s for s in (*eng._ring, eng._fold_slot)
+                if s["buf"] is not None or s["ev"] is not None]
+
+    eng = TorchMergeEngine(resident=True, device="cpu")
+    ks = PortKeySpace()
+    eng.merge_many(ks, [port_batch(b) for b in _hook_steps()[0]])
+    fill(eng)
+    eng.release_device_pools(ks)
+    assert held(eng) == []
+    fill(eng)
+    eng.discard_resident()
+    assert held(eng) == []
+    fill(eng)
+    eng.close()
+    assert held(eng) == []
+    eng.close()   # idempotent
