@@ -110,11 +110,35 @@ Phases, one line each; any failure raises and exits non-zero:
                subsample, K1, K2 and K4 launched, and the four shards'
                digest matrices, summed, equal to phase 5's store's
                full_state_digest.
+ 10. replication through the node  (a) make_frame_log (bench.py --mode
+               stream's frame log: F frames over K keys per prefix, the
+               collection DELs included), encoded to RESP bytes outside
+               the span, through workload.replay_stream into Node(
+               node_id=1) on the card (the resident steady engine):
+               make_parser in 1 MiB chunks, CoalescingApplier (512
+               frames, 5 ms), the group encoders, barriers through the
+               per-key op path, K3 rounds; logged: frames/s, sampled
+               visibility latency p50/p99, coalesced flushes, barriers,
+               device and host rounds, engine flushes, mirror rebuilds,
+               uploads, peak memory; checked: canonical() and the counter
+               sums equal to the per-frame replay (apply_batch=1) through
+               a CpuMergeEngine Node, one barrier per delset frame, K3
+               launches equal to the device rounds (> 0).  (b) the same
+               ops in a pusher Node's repl_log, split as the push loop
+               splits a drained run (workload.wire_frames: REPLBATCH runs
+               of up to 512 ops, barriers and short runs as single
+               frames, outside the span), through apply_wire_batch /
+               apply into a fresh card Node: canonical equal to (a)'s.
+               (c) 8 peers' tset frames (128 keys x 4096 f32, 3 rounds),
+               one CoalescingApplier each, then Node.tensor_read of every
+               key (K5): reads bit-equal to a CPU node's (a NaN matching
+               any NaN).  The phase's seconds are logged.
 Every catch-up logs the tier of its store's staging tables and fails
 unless all are native, and counts the read-only columns the engine
 copies before pinning.  Then one JSON line of kernel records (launches
 by path, phase 8's as "catchup_files", phase 9's as "sharded_process"
-(the workers' and the parent's) and "sharded_local"), the run's total
+(the workers' and the parent's) and "sharded_local", phase 10's as
+"replication" (a and c) and "wire" (b)), the run's total
 seconds, the nvidia-smi line, and the last line {"ok": true, "device":
 {...}}.
 
@@ -1683,6 +1707,279 @@ def corrupt_check(dev, directory: str, seed: int) -> None:
         "InvalidSnapshotChecksum")
 
 
+def same_reads(got, want) -> bool:
+    """Bit equality of two tensor reads, a NaN matching any NaN (IEEE
+    leaves a result NaN's sign and payload open)."""
+    import numpy as np
+    if got is None or want is None:
+        return got is None and want is None
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    nan = np.isnan(got) & np.isnan(want)
+    ui = np.dtype(f"u{got.dtype.itemsize}")
+    return bool(np.array_equal(got.view(ui)[~nan], want.view(ui)[~nan]))
+
+
+def replication_phase(dev, n_frames: int, stream_keys: int) -> dict:
+    """Phase 10: a peer's replication stream through the port's Node on
+    the card.  (a) RESP bytes -> make_parser -> CoalescingApplier (512
+    frames, 5 ms) -> group encoders, barriers through the per-key op
+    path -> K3 rounds, against the per-frame replay through a CPU-engine
+    Node; (b) the same ops as the push loop ships them (REPLBATCH runs
+    and single frames) into a fresh card Node, canonical equal to (a)'s;
+    (c) tset contributions from 8 peers, then Node.tensor_read of every
+    key (K5), bit-equal to a CPU node's reads."""
+    import torch
+
+    from constdb_tpu_torch import workload as W
+    from constdb_tpu_torch.engine.cpu import CpuMergeEngine
+    from constdb_tpu_torch.ops import kernels as KN
+    from constdb_tpu_torch.replica.coalesce import CoalescingApplier
+    from constdb_tpu_torch.replica.manager import ReplicaMeta
+    from constdb_tpu_torch.resp.codec import RespParser, make_parser
+    from constdb_tpu_torch.server.node import Node
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    frames = W.make_frame_log(n_frames, stream_keys)
+    data = W.frame_log_bytes(frames)
+    t_gen = time.perf_counter() - t0
+    barriers_in_log = sum(f[4].val == b"delset" for f in frames)
+
+    def timed(spent: dict, name: str, fn):
+        """fn, with its seconds added to spent[name]."""
+        def call(*a):
+            t = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return call
+
+    def counted_flushes(eng):
+        """Count the engine's flushes (Node.ensure_flushed calls it only
+        with device state unflushed)."""
+        n = [0]
+        real = eng.flush
+
+        def flush(store):
+            n[0] += 1
+            return real(store)
+
+        eng.flush = flush
+        return n
+
+    # (a) coalesced apply of the RESP stream
+    node = Node(node_id=1)
+    eng = node.engine
+    if not (eng.resident and eng.steady and eng.device == dev):
+        raise AssertionError("replication: Node() did not build the "
+                             "resident steady engine on the card")
+    flushes = counted_flushes(eng)
+    # where the span's host time goes: landing the coalesced batches
+    # (finalize, the env-narrow flush check, the engine's merge), the
+    # barriers (their full flush and the per-key op), the rest (parse,
+    # intake, the group encoders); the parse alone is timed apart
+    spent = {"land": 0.0, "barrier": 0.0}
+    node.merge_stream_batch = timed(spent, "land", node.merge_stream_batch)
+    node.apply_replicated = timed(spent, "barrier", node.apply_replicated)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launches()
+    applier, wall, lat = W.replay_stream(
+        data, node, W.APPLY_BATCH, 0.005, sync=torch.cuda.synchronize)
+    launches_a = dict(KN.LAUNCHES)
+    peak_a = torch.cuda.max_memory_allocated(dev)
+    st = node.stats
+    lat.sort()
+    a = {"frames": n_frames, "bytes": len(data), "wall_s": wall,
+         "frames_per_s": n_frames / wall,
+         "lat_p50_ms": 1e3 * lat[len(lat) // 2],
+         "lat_p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+         "lat_samples": len(lat),
+         "repl_coalesce_flushes": st.repl_coalesce_flushes,
+         "repl_apply_barriers": st.repl_apply_barriers,
+         "repl_frames_coalesced": st.repl_frames_coalesced,
+         "delset_in_log": barriers_in_log,
+         "dev_rounds_resident": eng.dev_rounds_resident,
+         "host_micro_rounds": eng.host_micro_rounds,
+         "k3_launches": launches_a["scatter_pair_src"],
+         "engine_flushes": flushes[0],
+         "mirror_rebuilds": dict(eng.mirror_rebuilds),
+         "bytes_h2d": eng.bytes_h2d, "h2d_copies": eng.h2d_copies,
+         "bytes_d2h": eng.bytes_d2h, "peak_mem_bytes": peak_a,
+         "family_secs": {k: round(v, 3) for k, v in eng.family_secs.items()},
+         "land_s": spent["land"], "barrier_s": spent["barrier"],
+         "parse_intake_encode_s": wall - spent["land"] - spent["barrier"],
+         "engine_merge_s": st.merge_secs, "engine_flush_s": st.flush_secs,
+         "gen_s": t_gen}
+    # the parse alone, native (the span's) and pure; every REPLICATE
+    # frame carries a 19-digit uuid, past the C scanner's 18-digit fast
+    # path, so it defers each frame to the pure parser
+    for key, mk in (("parse_alone_s", make_parser),
+                    ("parse_pure_s", RespParser)):
+        t0 = time.perf_counter()
+        parser = mk()
+        for off in range(0, len(data), W.REPLAY_CHUNK):
+            parser.feed(data[off:off + W.REPLAY_CHUNK])
+            while parser.next_msg() is not None:
+                pass
+        a[key] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = Node(node_id=1, engine=CpuMergeEngine())
+    W.replay_stream(data, oracle, 1, 0.005)
+    want = oracle.canonical()
+    got = node.canonical()
+    bad = W.compare_canonical(got, want)
+    keys = list(want)
+    bad_sums = W.compare_counter_sums(node.ks, oracle.ks, keys)
+    a["oracle_s"] = time.perf_counter() - t0
+    a["verified_keys"] = len(keys)
+    if bad or bad_sums or len(got) != len(want):
+        raise AssertionError(f"replication: {bad} of {len(keys)} keys and "
+                             f"{bad_sums} counter sums differ from the "
+                             f"per-frame replay ({len(got)} keys against "
+                             f"{len(want)})")
+    if applier.meta.uuid_he_sent != frames[-1][3].val:
+        raise AssertionError("replication: the watermark stopped at "
+                             f"{applier.meta.uuid_he_sent}")
+    if st.repl_apply_barriers != barriers_in_log:
+        raise AssertionError(f"replication: {st.repl_apply_barriers} "
+                             f"barriers for {barriers_in_log} delset frames")
+    rounds = eng.dev_rounds_resident
+    if not rounds or launches_a["scatter_pair_src"] != rounds:
+        raise AssertionError(f"replication: K3 launched "
+                             f"{launches_a['scatter_pair_src']} times in "
+                             f"{rounds} device rounds")
+    del oracle
+    eng.close()
+    del node, eng, applier
+    log(f"replication (a): {n_frames} frames ({len(data)} RESP bytes) over "
+        f"{stream_keys} keys per prefix through Node(node_id=1) on the "
+        f"card, 512-frame batches, 5 ms: {wall:.3f} s "
+        f"({a['frames_per_s']:.0f} frames/s), visibility p50 "
+        f"{a['lat_p50_ms']:.3f} ms, p99 {a['lat_p99_ms']:.3f} ms; "
+        f"host time: landing {a['land_s']:.3f} s (engine merge "
+        f"{a['engine_merge_s']:.3f} s), barriers {a['barrier_s']:.3f} s "
+        f"(engine flushes in all {a['engine_flush_s']:.3f} s), parse, "
+        f"intake and group encoders {a['parse_intake_encode_s']:.3f} s "
+        f"(the parse alone {a['parse_alone_s']:.3f} s, the pure parser "
+        f"{a['parse_pure_s']:.3f} s); "
+        f"{a['repl_coalesce_flushes']} coalesced flushes, "
+        f"{a['repl_apply_barriers']} barriers, rounds on the device "
+        f"{rounds} (K3 launches {launches_a['scatter_pair_src']}), on the "
+        f"host {a['host_micro_rounds']}, engine flushes "
+        f"{a['engine_flushes']}, mirror rebuilds {a['mirror_rebuilds']}, "
+        f"up {a['bytes_h2d']} B in {a['h2d_copies']} copies, peak "
+        f"{peak_a} B; {len(keys)} keys and their counter sums equal to the "
+        f"per-frame CPU replay {json.dumps(a)}")
+
+    # (b) the same ops as REPLBATCH runs and single frames
+    t0 = time.perf_counter()
+    pusher = Node(node_id=W.STREAM_ORIGIN, engine=CpuMergeEngine(),
+                  repl_log_cap=1 << 40)
+    W.push_log(pusher, frames)
+    wframes, wst = W.wire_frames(pusher)
+    t_build = time.perf_counter() - t0
+    del pusher
+    node = Node(node_id=1)
+    eng = node.engine
+    spent = {"land": 0.0, "barrier": 0.0}
+    node.merge_stream_batch = timed(spent, "land", node.merge_stream_batch)
+    node.apply_replicated = timed(spent, "barrier", node.apply_replicated)
+    torch.cuda.synchronize()
+    KN.reset_launches()
+    applier, wall_b, decode_s = W.wire_replay(
+        wframes, node, sync=torch.cuda.synchronize)
+    launches_b = dict(KN.LAUNCHES)
+    b = {"wall_s": wall_b, "frames_per_s": n_frames / wall_b,
+         "decode_s": decode_s, "build_s": t_build, **wst,
+         "land_s": spent["land"], "barrier_s": spent["barrier"],
+         "engine_merge_s": node.stats.merge_secs,
+         "wire_frames": len(wframes),
+         "dev_rounds_resident": eng.dev_rounds_resident,
+         "host_micro_rounds": eng.host_micro_rounds,
+         "k3_launches": launches_b["scatter_pair_src"],
+         "repl_wire_batches_in": node.stats.repl_wire_batches_in,
+         "repl_apply_barriers": node.stats.repl_apply_barriers}
+    if node.canonical() != got:
+        raise AssertionError("replication (b): the wire replay's state "
+                             "differs from (a)'s")
+    if wst["batch_frames"] + wst["single_frames"] != n_frames or \
+            node.stats.repl_wire_batches_in != wst["batches"]:
+        raise AssertionError(f"replication (b): {wst} for {n_frames} "
+                             "frames")
+    if not launches_b["scatter_pair_src"]:
+        raise AssertionError("replication (b): K3 was not launched")
+    eng.close()
+    del node, eng, applier, got, want, frames, data, wframes
+    log(f"replication (b): the ops as the push loop ships them, "
+        f"{wst['batches']} REPLBATCH frames ({wst['batch_frames']} ops, "
+        f"{wst['payload_bytes']} payload bytes) and "
+        f"{wst['single_frames']} single frames, built in {t_build:.3f} s "
+        f"outside the span, into a fresh card Node: {wall_b:.3f} s "
+        f"({b['frames_per_s']:.0f} frames/s), decode {decode_s:.3f} s, "
+        f"landing {b['land_s']:.3f} s (engine merge "
+        f"{b['engine_merge_s']:.3f} s), barriers {b['barrier_s']:.3f} s; "
+        f"canonical equal to (a)'s {json.dumps(b)}")
+
+    # (c) tensor contributions from 8 peers, reads through the node
+    n_peers, n_rounds, n_keys, elems = 8, 3, 128, 4096
+    peers = W.tensor_peer_frames(n_peers, n_rounds, n_keys, elems)
+    node = Node(node_id=1)
+    eng = node.engine
+    cpu = Node(node_id=1, engine=CpuMergeEngine())
+
+    def feed(nd):
+        aps = [CoalescingApplier(nd, ReplicaMeta(f"peer{p}:0"),
+                                 max_frames=W.APPLY_BATCH, max_latency=1e9)
+               for p in range(n_peers)]
+        for r in range(n_rounds):
+            for p, ap in enumerate(aps):
+                for items in peers[p][r]:
+                    ap.apply(items)
+                ap.flush()
+
+    torch.cuda.synchronize()
+    KN.reset_launches()
+    t0 = time.perf_counter()
+    feed(node)
+    kids = [node.ks.lookup(b"t%06d" % k) for k in range(n_keys)]
+    reads = [node.tensor_read(kid) for kid in kids]
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    launches_c = dict(KN.LAUNCHES)
+    feed(cpu)
+    bad = sum(not same_reads(got, cpu.ks.tensor_read(cpu.ks.lookup(
+        b"t%06d" % k))) for k, got in enumerate(reads))
+    if bad or node.canonical() != cpu.canonical():
+        raise AssertionError(f"replication (c): {bad} of {n_keys} tensor "
+                             "reads or the state differ from the CPU node")
+    if not launches_c["tensor_take_reduce"] or not eng.tns_dev_rows:
+        raise AssertionError(f"replication (c): K5 launches "
+                             f"{launches_c['tensor_take_reduce']}, rows "
+                             f"on the device {eng.tns_dev_rows}")
+    rows = n_peers * n_rounds * n_keys
+    c = {"wall_s": wall_c, "rows": rows, "rows_per_s": rows / wall_c,
+         "reads": n_keys, "k5_launches": launches_c["tensor_take_reduce"],
+         "tns_dev_rows": eng.tns_dev_rows,
+         "tns_host_rows": eng.tns_host_rows}
+    eng.close()
+    del node, eng, cpu, peers
+    log(f"replication (c): {n_peers} peers x {n_rounds} rounds x {n_keys} "
+        f"tset frames of {elems} f32 through one CoalescingApplier each, "
+        f"then Node.tensor_read of every key: {wall_c:.3f} s; K5 launched "
+        f"{c['k5_launches']} times; reads bit-equal to the CPU node's "
+        f"{json.dumps(c)}")
+    secs = time.perf_counter() - t_phase
+    log(f"replication: phase {secs:.1f} s")
+    launches = {"replication": {k: launches_a[k] + launches_c[k]
+                                for k in launches_a},
+                "wire": launches_b}
+    return {"a": a, "b": b, "c": c, "launches": launches, "secs": secs}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--keys", type=int, default=1_000_000)
@@ -1778,6 +2075,7 @@ def main() -> int:
     finally:
         shutil.rmtree(file_dir, ignore_errors=True)
     del fold_batches
+    repl = replication_phase(dev, args.frames, args.stream_keys)
 
     replaces = {
         "merge_elems": "constdb_tpu/ops/pallas_dense.py:105",
@@ -1799,7 +2097,9 @@ def main() -> int:
                    "tensor": tensor["launches"][name],
                    "catchup_files": files["launches"][name],
                    "sharded_process": sharded["launches"][name],
-                   "sharded_local": local["launches"][name]}
+                   "sharded_local": local["launches"][name],
+                   "replication": repl["launches"]["replication"][name],
+                   "wire": repl["launches"]["wire"][name]}
         rec = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": sum(by_path.values()),

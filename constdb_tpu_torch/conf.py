@@ -29,6 +29,36 @@ ENV_REGISTRY = {
     "CONSTDB_TORCH_SHARDS": "hash shards of a ShardedKeySpace (default: "
                             "1 on <= 2 cores, else the core count, at "
                             "most 64)",
+    # the node's data plane (twins of the reference's knobs, same defaults)
+    "CONSTDB_TORCH_APPLY_BATCH": "replication coalescer: max frames per "
+                                 "landed micro-batch; 1 = the exact "
+                                 "per-frame path (default 512)",
+    "CONSTDB_TORCH_APPLY_LATENCY_MS": "replication coalescer: max latency "
+                                      "of a pending frame before a flush "
+                                      "(default 5.0)",
+    "CONSTDB_TORCH_PROTO_MAX_BULK": "largest RESP bulk length the parser "
+                                    "accepts (default and ceiling 512 MiB)",
+    "CONSTDB_TORCH_UNDO_WINDOW": "locally originated counter ops CNTUNDO "
+                                 "can invert (default 4096)",
+    "CONSTDB_TORCH_ENCODE_CACHE_MB": "encode-once run cache bytes; 0 "
+                                     "disables (default 16)",
+    "CONSTDB_TORCH_READ_CACHE_MB": "versioned reply cache bytes; 0 "
+                                   "disables (default 16)",
+    "CONSTDB_TORCH_TENSOR_STRATEGY": "strategy of a tensor key created "
+                                     "without one (default lww)",
+    "CONSTDB_TORCH_TENSOR_MAX_ELEMS": "largest tensor a TSET may carry "
+                                      "(default 4194304)",
+    "CONSTDB_TORCH_MAXMEMORY": "used-memory hard watermark in bytes; 0 = "
+                               "unbounded (default 0)",
+    "CONSTDB_TORCH_MAXMEMORY_SOFT_PCT": "soft watermark, percent of "
+                                        "MAXMEMORY, past which client "
+                                        "writes are shed (default 85.0)",
+    "CONSTDB_TORCH_TRACKING_BATCH": "client tracking: invalidation keys "
+                                    "per push flush (default 128)",
+    "CONSTDB_TORCH_TRACKING_LATENCY_MS": "client tracking: max delay of a "
+                                         "pending invalidation (default 2)",
+    "CONSTDB_TORCH_TRACKING_MAX_KEYS": "client tracking: tracked keys "
+                                       "before a flush-all (default 65536)",
 }
 
 
@@ -41,6 +71,11 @@ def _env_read(name: str):
 def env_int(name: str, default: int) -> int:
     v = _env_read(name)
     return default if v is None or v == "" else int(v)
+
+
+def env_float(name: str, default: float) -> float:
+    v = _env_read(name)
+    return default if v is None or v == "" else float(v)
 
 
 def env_str(name: str, default: str) -> str:

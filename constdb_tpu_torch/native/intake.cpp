@@ -1,0 +1,355 @@
+// Native intake engine: classify + pre-parse pipelined client commands.
+//
+// The port's own copy of the reference package's native/intake.cpp.
+//
+// The serve coalescer (server/serve.py) plans a fixed command set into
+// columnar planes; everything else executes per-command.  This stage
+// moves the per-command *intake* — RESP framing, argument extraction,
+// command classification — into C: intake_scan drains a connection's
+// pipelined bytes in one call and emits an opcode string + per-command
+// payloads the Python planners consume without ever constructing message
+// objects for the plannable set.  The split it encodes is EXACTLY the
+// coalescer's plannable/barrier split; the Python side remains the
+// semantics reference, and anything this scan cannot take cleanly is
+// left unconsumed for the reference path (byte-identical replies,
+// planes, and replication log either way — tests/test_resp_fuzz.py
+// pins the differential).
+//
+// NATIVE-INTAKE-TABLE-BEGIN (parsed by analysis/rules.py NATIVE-CONTRACT)
+//   native: set incr decr sadd srem hset hdel
+//   native-reads: get scnt sismember smembers hget hgetall llen hlen
+//   python-only: cntundo tensor.set tensor.merge lrange
+// NATIVE-INTAKE-TABLE-END
+//
+// Routability contract (cluster mode): every native/native-reads entry
+// must be slot-routable — first-key-confined, non-CTRL, non-empty
+// families — because the serve coalescer extracts the routing key from
+// the scanned payload (payloads[i][1][0] for writes, payloads[i][0] for
+// reads) to demote would-redirect commands back to the per-command
+// path.  A CTRL or keyless command in these rows would fast-path here
+// while the slot router skips it; the NATIVE-CONTRACT lint's
+// `:unroutable` direction rejects that statically.
+//
+// intake_scan(buf, pos, Arr, Bulk, Int, Simple, Err, nil[, max_bulk,
+// max_msgs]) returns (ops, payloads, new_pos):
+//   * ops      — bytes; ops[i] is message i's opcode (Op below; 0 means
+//                not natively plannable — payloads[i] is the full parsed
+//                message object and the Python coalescer handles it).
+//   * payloads — write opcodes (1..9): a (bulks, raws) pair — bulks is
+//                the list of Bulk objects for items[1:] (the replication
+//                log args), raws the same payload bytes as a tuple (the
+//                planner inputs); one underlying bytes object per item,
+//                shared between both views.  Read opcodes (10..16): the
+//                raws tuple alone (a message object is rebuilt on the
+//                Python side only if the read demotes).  OP_OTHER: the
+//                message object itself.
+//   * new_pos  — first unconsumed byte.
+//
+// The scan STOPS (leaving the remainder for the pure drain path) on: a
+// non-'*' top byte, partial/malformed frames, any shape resp::parse_any
+// defers on, and any message whose first element is the bulk "sync" or
+// "fullsync" (connection upgrades belong to the io loop).  Stopping is
+// always exact — unconsumed bytes re-parse through the reference path.
+//
+// No code in this file mutates store state: the outputs are inert
+// opcodes + payload views; every merge still flows through the Python
+// coalescer's planes (docs/INVARIANTS.md, native plane laws).
+
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+
+#include <cstring>
+#include <string>
+
+namespace intake {
+
+enum Op : unsigned char {
+    OP_OTHER = 0,
+    // writes (plannable: SERVE_PLANNERS mirrors)
+    OP_SET = 1,
+    OP_INCR1 = 2,  // incr without an explicit delta
+    OP_INCR = 3,
+    OP_DECR1 = 4,
+    OP_DECR = 5,
+    OP_SADD = 6,
+    OP_SREM = 7,
+    OP_HSET = 8,
+    OP_HDEL = 9,
+    // reads (plannable: SERVE_READS mirrors)
+    OP_GET = 10,
+    OP_SCNT = 11,
+    OP_SISMEMBER = 12,
+    OP_SMEMBERS = 13,
+    OP_HGET = 14,
+    OP_HGETALL = 15,
+    OP_LLEN = 16,
+    OP_HLEN = 17,
+};
+
+constexpr unsigned char kFirstRead = OP_GET;
+constexpr Py_ssize_t kMaxFlatItems = 512;
+
+struct FlatCmd {
+    Py_ssize_t off[kMaxFlatItems];
+    Py_ssize_t len[kMaxFlatItems];
+    Py_ssize_t n = 0;
+    Py_ssize_t end = 0;  // first byte after the message
+};
+
+// Scan one flat command array (`*N` of `$` bulks only) starting at p.
+// Returns 1 ok, 0 need-more, -1 not-flat / malformed / over caps (the
+// caller retries via resp::parse_any or stops the scan).
+inline int scan_flat(const char* b, Py_ssize_t blen, Py_ssize_t p,
+                     long long bulk_cap, FlatCmd* fc) {
+    long long cnt;
+    Py_ssize_t q;
+    int st = resp::int_line(b, blen, p + 1, &cnt, &q);
+    if (st <= 0) return st;
+    if (cnt < 0 || cnt > kMaxFlatItems) return -1;
+    for (long long i = 0; i < cnt; i++) {
+        if (q >= blen) return 0;
+        if (b[q] != '$') return -1;
+        long long ln;
+        Py_ssize_t r;
+        st = resp::int_line(b, blen, q + 1, &ln, &r);
+        if (st <= 0) return st;
+        if (ln < 0 || ln > bulk_cap) return -1;
+        if (r + ln + 2 > blen) return 0;
+        if (b[r + ln] != '\r' || b[r + ln + 1] != '\n') return -1;
+        fc->off[i] = r;
+        fc->len[i] = ln;
+        q = r + ln + 2;
+    }
+    fc->n = (Py_ssize_t)cnt;
+    fc->end = q;
+    return 1;
+}
+
+// Opcode for a lowercase command name + total item count.  Arity gates
+// mirror the Python planners EXACTLY (anything they would demote on —
+// wrong arity, extra args — classifies OP_OTHER and takes the reference
+// path, where the planner itself decides).  Uppercase names also take
+// OP_OTHER: the Python _planner_of lowercases and plans identically.
+inline unsigned char classify(const char* nm, Py_ssize_t nl, Py_ssize_t n) {
+    switch (nl) {
+        case 3:
+            if (!memcmp(nm, "set", 3)) return n == 3 ? OP_SET : OP_OTHER;
+            if (!memcmp(nm, "get", 3)) return n == 2 ? OP_GET : OP_OTHER;
+            break;
+        case 4:
+            if (!memcmp(nm, "incr", 4))
+                return n == 2 ? OP_INCR1 : (n == 3 ? OP_INCR : OP_OTHER);
+            if (!memcmp(nm, "decr", 4))
+                return n == 2 ? OP_DECR1 : (n == 3 ? OP_DECR : OP_OTHER);
+            if (!memcmp(nm, "sadd", 4)) return n >= 3 ? OP_SADD : OP_OTHER;
+            if (!memcmp(nm, "srem", 4)) return n >= 3 ? OP_SREM : OP_OTHER;
+            if (!memcmp(nm, "hset", 4))
+                return (n >= 4 && !(n & 1)) ? OP_HSET : OP_OTHER;
+            if (!memcmp(nm, "hdel", 4)) return n >= 3 ? OP_HDEL : OP_OTHER;
+            if (!memcmp(nm, "scnt", 4)) return n == 2 ? OP_SCNT : OP_OTHER;
+            if (!memcmp(nm, "hget", 4)) return n == 3 ? OP_HGET : OP_OTHER;
+            if (!memcmp(nm, "llen", 4)) return n == 2 ? OP_LLEN : OP_OTHER;
+            if (!memcmp(nm, "hlen", 4)) return n == 2 ? OP_HLEN : OP_OTHER;
+            break;
+        case 7:
+            if (!memcmp(nm, "hgetall", 7))
+                return n == 2 ? OP_HGETALL : OP_OTHER;
+            break;
+        case 8:
+            if (!memcmp(nm, "smembers", 8))
+                return n == 2 ? OP_SMEMBERS : OP_OTHER;
+            break;
+        case 9:
+            if (!memcmp(nm, "sismember", 9))
+                return n == 3 ? OP_SISMEMBER : OP_OTHER;
+            break;
+    }
+    return OP_OTHER;
+}
+
+// (bulks, raws) for a write opcode: items[1:] as Bulk objects AND as the
+// same underlying bytes in a tuple.
+inline PyObject* write_payload(const resp::ParseCtx& c, const FlatCmd& fc) {
+    Py_ssize_t m = fc.n - 1;
+    resp::Names& nm = resp::names();
+    PyObject* bulks = PyList_New(m);
+    PyObject* raws = PyTuple_New(m);
+    if (!bulks || !raws) {
+        Py_XDECREF(bulks);
+        Py_XDECREF(raws);
+        return nullptr;
+    }
+    for (Py_ssize_t i = 0; i < m; i++) {
+        PyObject* raw = PyBytes_FromStringAndSize(c.b + fc.off[i + 1],
+                                                  fc.len[i + 1]);
+        if (!raw) {
+            Py_DECREF(bulks);
+            Py_DECREF(raws);
+            return nullptr;
+        }
+        PyTuple_SET_ITEM(raws, i, raw);  // steals
+        Py_INCREF(raw);                  // for make1, which steals too
+        PyObject* blk = resp::make1(c.bulk_t, nm.val, raw);
+        if (!blk) {
+            Py_DECREF(bulks);
+            Py_DECREF(raws);
+            return nullptr;
+        }
+        PyList_SET_ITEM(bulks, i, blk);
+    }
+    PyObject* pay = PyTuple_New(2);
+    if (!pay) {
+        Py_DECREF(bulks);
+        Py_DECREF(raws);
+        return nullptr;
+    }
+    PyTuple_SET_ITEM(pay, 0, bulks);
+    PyTuple_SET_ITEM(pay, 1, raws);
+    return pay;
+}
+
+// raws tuple for a read opcode: items[1:] as bytes.
+inline PyObject* read_payload(const resp::ParseCtx& c, const FlatCmd& fc) {
+    Py_ssize_t m = fc.n - 1;
+    PyObject* raws = PyTuple_New(m);
+    if (!raws) return nullptr;
+    for (Py_ssize_t i = 0; i < m; i++) {
+        PyObject* raw = PyBytes_FromStringAndSize(c.b + fc.off[i + 1],
+                                                  fc.len[i + 1]);
+        if (!raw) {
+            Py_DECREF(raws);
+            return nullptr;
+        }
+        PyTuple_SET_ITEM(raws, i, raw);
+    }
+    return raws;
+}
+
+// Full message object for a flat OP_OTHER command (avoids re-parsing).
+inline PyObject* flat_msg(const resp::ParseCtx& c, const FlatCmd& fc) {
+    resp::Names& nm = resp::names();
+    PyObject* items = PyList_New(fc.n);
+    if (!items) return nullptr;
+    for (Py_ssize_t i = 0; i < fc.n; i++) {
+        PyObject* blk = resp::make1(
+            c.bulk_t, nm.val,
+            PyBytes_FromStringAndSize(c.b + fc.off[i], fc.len[i]));
+        if (!blk) {
+            Py_DECREF(items);
+            return nullptr;
+        }
+        PyList_SET_ITEM(items, i, blk);
+    }
+    return resp::make1(c.arr_t, nm.items, items);
+}
+
+// "sync" / "fullsync" (case-insensitive), matching the io loop's upgrade
+// scan — such frames must surface through the reference path.
+inline bool is_upgrade_name(const char* p, Py_ssize_t n) {
+    return (n == 4 && strncasecmp(p, "sync", 4) == 0) ||
+           (n == 8 && strncasecmp(p, "fullsync", 8) == 0);
+}
+
+// A parse_any-built message whose first element is an upgrade bulk.
+// Returns 1 yes, 0 no, -1 python error.
+inline int msg_is_upgrade(const resp::ParseCtx& c, PyObject* msg) {
+    if (Py_TYPE(msg) != reinterpret_cast<PyTypeObject*>(c.arr_t)) return 0;
+    resp::Names& nm = resp::names();
+    PyObject* items = PyObject_GetAttr(msg, nm.items);
+    if (!items) return -1;
+    int res = 0;
+    if (PyList_CheckExact(items) && PyList_GET_SIZE(items) > 0) {
+        PyObject* head = PyList_GET_ITEM(items, 0);
+        if (Py_TYPE(head) == reinterpret_cast<PyTypeObject*>(c.bulk_t)) {
+            PyObject* v = PyObject_GetAttr(head, nm.val);
+            if (!v) {
+                Py_DECREF(items);
+                return -1;
+            }
+            if (PyBytes_CheckExact(v) &&
+                is_upgrade_name(PyBytes_AS_STRING(v), PyBytes_GET_SIZE(v)))
+                res = 1;
+            Py_DECREF(v);
+        }
+    }
+    Py_DECREF(items);
+    return res;
+}
+
+}  // namespace intake
+
+static PyObject* py_intake_scan(PyObject*, PyObject* args) {
+    Py_buffer view;
+    Py_ssize_t pos;
+    PyObject *arr_t, *bulk_t, *int_t, *simple_t, *err_t, *nil_obj;
+    long long max_bulk = 0;
+    Py_ssize_t max_msgs = 4096;
+    if (!PyArg_ParseTuple(args, "y*nOOOOOO|Ln", &view, &pos, &arr_t, &bulk_t,
+                          &int_t, &simple_t, &err_t, &nil_obj, &max_bulk,
+                          &max_msgs))
+        return nullptr;
+    const long long bulk_cap =
+        (max_bulk > 0 && max_bulk < resp::kMaxBulk) ? max_bulk
+                                                    : resp::kMaxBulk;
+    resp::ParseCtx ctx{static_cast<const char*>(view.buf), view.len,
+                       arr_t, bulk_t, int_t, simple_t, err_t, nil_obj,
+                       bulk_cap};
+    std::string ops;
+    PyObject* payloads = PyList_New(0);
+    if (!payloads) {
+        PyBuffer_Release(&view);
+        return nullptr;
+    }
+    const char* b = ctx.b;
+    while ((Py_ssize_t)ops.size() < max_msgs && pos < ctx.len) {
+        if (b[pos] != '*') break;  // inline/garbage: pure parser decides
+        intake::FlatCmd fc;
+        int st = intake::scan_flat(b, ctx.len, pos, bulk_cap, &fc);
+        if (st == 0) break;  // partial trailing message
+        unsigned char op = intake::OP_OTHER;
+        PyObject* payload = nullptr;
+        if (st == 1) {
+            if (fc.n > 0 &&
+                intake::is_upgrade_name(b + fc.off[0], fc.len[0]))
+                break;  // SYNC/FULLSYNC: the io loop owns the upgrade
+            if (fc.n > 0)
+                op = intake::classify(b + fc.off[0], fc.len[0], fc.n);
+            if (op >= intake::kFirstRead)
+                payload = intake::read_payload(ctx, fc);
+            else if (op != intake::OP_OTHER)
+                payload = intake::write_payload(ctx, fc);
+            else
+                payload = intake::flat_msg(ctx, fc);
+            if (!payload) goto fail;
+            pos = fc.end;
+        } else {  // non-flat: nested/int items, nil counts... full parse
+            Py_ssize_t p = pos;
+            bool fullsync = false;
+            int st2 = resp::parse_any(ctx, &p, 0, &payload, &fullsync);
+            if (st2 == 0 || st2 == -1) break;  // pure parser's business
+            if (st2 == -2) goto fail;
+            int up = fullsync ? 1 : intake::msg_is_upgrade(ctx, payload);
+            if (up != 0) {
+                Py_DECREF(payload);
+                if (up < 0) goto fail;
+                break;  // leave the upgrade frame unconsumed
+            }
+            pos = p;
+        }
+        ops.push_back((char)op);
+        int rc = PyList_Append(payloads, payload);
+        Py_DECREF(payload);
+        if (rc != 0) goto fail;
+    }
+    {
+        PyObject* opb = PyBytes_FromStringAndSize(ops.data(),
+                                                  (Py_ssize_t)ops.size());
+        if (!opb) goto fail;
+        PyBuffer_Release(&view);
+        return Py_BuildValue("(NNn)", opb, payloads, pos);
+    }
+fail:
+    Py_DECREF(payloads);
+    PyBuffer_Release(&view);
+    return nullptr;
+}

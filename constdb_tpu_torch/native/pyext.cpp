@@ -1,12 +1,13 @@
-// CPython extension binding for the staging tables (tables.cpp) and CRC-64
-// (crc64.cpp).
+// CPython extension binding for the staging tables (tables.cpp), CRC-64
+// (crc64.cpp), the RESP parser and encoder (resp.cpp), the pipelined
+// command intake scanner (intake.cpp) and the REPLBATCH blob columns
+// (wire.cpp).
 //
-// The port's own copy of the reference package's native/pyext.cpp, trimmed
-// to the tables, nonnull_mask and abi_stamp (the RESP, intake, wire and AOF
-// scanners are not part of the port), with crc64 added: the reference
-// calls its CRC through ctypes, the port through this module.  The
-// extension walks a list of PyBytes directly in C, so the caller packs no
-// blob; output arrays are caller-allocated numpy buffers passed through
+// The port's own copy of the reference package's native/pyext.cpp, without
+// the AOF scanner (it comes with the op log), and with crc64 added: the
+// reference calls its CRC through ctypes, the port through this module.
+// The extension walks a list of PyBytes directly in C, so the caller packs
+// no blob; output arrays are caller-allocated numpy buffers passed through
 // the buffer protocol (no numpy C-API dependency).
 //
 // Built at first use by constdb_tpu_torch/utils/native.py, with the hash of
@@ -18,6 +19,9 @@
 
 #include "crc64.cpp"   // self-contained: cst_crc64
 #include "tables.cpp"  // self-contained: StrTable / I64Table definitions
+#include "resp.cpp"    // RESP flat-array fast parser (py_resp_parse)
+#include "intake.cpp"  // pipelined-command intake engine (py_intake_scan)
+#include "wire.cpp"    // REPLBATCH blob columns (py_wire_{pack,unpack}_blobs)
 
 #ifndef CST_ABI_STAMP
 #define CST_ABI_STAMP ""
@@ -343,6 +347,19 @@ PyMethodDef methods[] = {
     {"i64_lookup_batch", py_i64_lookup_batch, METH_VARARGS, ""},
     {"i64_put_batch", py_i64_put_batch, METH_VARARGS, ""},
     {"i64_get_or_assign_batch", py_i64_get_or_assign_batch, METH_VARARGS, ""},
+    {"resp_parse", py_resp_parse, METH_VARARGS,
+     "resp_parse(buf, pos, Arr, Bulk, Int, Simple, Err, nil[, max]) -> "
+     "(msgs, new_pos, fallback)"},
+    {"resp_encode", py_resp_encode, METH_VARARGS,
+     "resp_encode(out, msg, Arr, Bulk, Int, Simple, Err, NilT, NoReplyT) "
+     "-> appended? (False = caller must use the pure-Python encoder)"},
+    {"intake_scan", py_intake_scan, METH_VARARGS,
+     "intake_scan(buf, pos, Arr, Bulk, Int, Simple, Err, nil[, max_bulk, "
+     "max_msgs]) -> (ops, payloads, new_pos)"},
+    {"wire_pack_blobs", py_wire_pack_blobs, METH_VARARGS,
+     "wire_pack_blobs(out, items) -> appended? (False = pure packer)"},
+    {"wire_unpack_blobs", py_wire_unpack_blobs, METH_VARARGS,
+     "wire_unpack_blobs(buf, pos, n) -> (blobs, new_pos) | None"},
     {"abi_stamp", py_abi_stamp, METH_NOARGS,
      "abi_stamp() -> sha256 over the sources and flags this module was "
      "built from"},

@@ -1,0 +1,452 @@
+"""Incremental RESP parser and encoder.
+
+Capability parity with the reference's hand-rolled read/write buffers
+(reference src/conn/buf_read.rs:114-211 recursive-descent parser with
+NeedMoreMsg + compaction; src/conn/buf_write.rs:32-159 encoder).
+
+The parser consumes from an internal bytearray; `feed()` appends raw socket
+bytes, `next_msg()` returns one complete message or None.  Partial input never
+raises — the cursor only advances past fully parsed messages.  Consumed bytes
+are compacted away lazily once they exceed a threshold.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..errors import InvalidRequestMsg
+from .message import (Arr, Bulk, Err, Int, Msg, NIL, NO_REPLY, Nil,
+                      NoReply, Push, Simple)
+
+_CRLF = b"\r\n"
+_COMPACT_THRESHOLD = 1 << 16
+# interned small-int reply lines (parity: reference src/resp.rs:12-27
+# pre-encodes the common counter replies)
+_INT_REPLY = [b":%d\r\n" % i for i in range(1024)]
+
+_DEFAULT_MAX_BULK = 512 << 20  # Redis proto-max-bulk-len default
+_MAX_BULK_CACHE: list = []
+
+
+def max_bulk_len() -> int:
+    """The parse-time bulk-length ceiling (CONSTDB_TORCH_PROTO_MAX_BULK,
+    Redis-style 512MB default).  A `$`-header past it is a PROTOCOL
+    error the moment the header line parses — the parser never buffers
+    toward an absurd declared length, so a malicious `$99999999999`
+    costs one error reply, not an allocation (overload governance,
+    docs/INVARIANTS.md "Degradation laws").  Cached at first use;
+    clamped to the wire format's hard 512MB ceiling."""
+    if not _MAX_BULK_CACHE:
+        from ..conf import env_int
+        _MAX_BULK_CACHE.append(
+            min(max(1, env_int("CONSTDB_TORCH_PROTO_MAX_BULK",
+                               _DEFAULT_MAX_BULK)), _DEFAULT_MAX_BULK))
+    return _MAX_BULK_CACHE[0]
+
+
+def encode_into(out: bytearray, m: Msg) -> None:
+    """Append m's wire encoding to `out`: the native encoder (interned
+    small-int replies, C-speed bulk arrays).  A shape it declines
+    (subclasses, big ints, non-bytes payloads) takes the bit-identical
+    pure-Python encoder, which is also the tests' oracle."""
+    if _enc()(out, m, Arr, Bulk, Int, Simple, Err, Nil, NoReply):
+        return
+    _py_encode_into(out, m)
+
+
+def _py_encode_into(out: bytearray, m: Msg) -> None:
+    if isinstance(m, NoReply):
+        return
+    if isinstance(m, Nil):
+        out += b"$-1\r\n"
+    elif isinstance(m, Simple):
+        out += b"+"
+        out += m.val
+        out += _CRLF
+    elif isinstance(m, Err):
+        out += b"-"
+        out += m.val
+        out += _CRLF
+    elif isinstance(m, Int):
+        v = m.val
+        out += _INT_REPLY[v] if 0 <= v < 1024 else b":%d\r\n" % v
+    elif isinstance(m, Bulk):
+        out += b"$%d\r\n" % len(m.val)
+        out += m.val
+        out += _CRLF
+    elif isinstance(m, Push):
+        # ordered before Arr (Push subclasses it): RESP3 push frames
+        # carry the '>' type byte but are otherwise array-shaped.  The
+        # native encoder declines subclasses, so this branch is the only
+        # encode path for pushes — RESP2 replies never reach it.
+        out += b">%d\r\n" % len(m.items)
+        for item in m.items:
+            if isinstance(item, NoReply):
+                raise TypeError("NoReply inside Push would desync the frame")
+            encode_into(out, item)
+    elif isinstance(m, Arr):
+        out += b"*%d\r\n" % len(m.items)
+        for item in m.items:
+            if isinstance(item, NoReply):
+                raise TypeError("NoReply inside Arr would desync the frame")
+            encode_into(out, item)
+    else:
+        raise TypeError(f"cannot encode {m!r}")
+
+
+def encode_msg(m: Msg) -> bytes:
+    out = bytearray()
+    encode_into(out, m)
+    return bytes(out)
+
+
+class _NeedMore(Exception):
+    pass
+
+
+_NEED_MORE = _NeedMore()
+
+
+class RespParser:
+    __slots__ = ("_buf", "_pos", "max_depth", "max_bulk", "_q", "_qpos")
+
+    def __init__(self, max_depth: int = 32, max_bulk: Optional[int] = None):
+        self._buf = bytearray()
+        self._pos = 0
+        self.max_depth = max_depth
+        self.max_bulk = max_bulk_len() if max_bulk is None else max_bulk
+        # already-parsed messages awaiting delivery: the native subclass
+        # fast-parses whole pipelines in one C call, and `pushback`
+        # re-queues messages a caller drained but does not own (server/io.py
+        # hands post-SYNC messages back to the replica link this way)
+        self._q: list = []
+        self._qpos = 0
+
+    def feed(self, data) -> None:
+        self._buf += data
+
+    @property
+    def buffered(self) -> int:
+        return len(self._buf) - self._pos
+
+    def _compact(self) -> None:
+        """Drop consumed bytes once they pass the threshold (single home
+        for the policy — next_msg fast/general paths, take_raw, and the
+        native subclass all share it)."""
+        if self._pos >= _COMPACT_THRESHOLD:
+            del self._buf[: self._pos]
+            self._pos = 0
+
+    def take_raw(self, n: int) -> bytes:
+        """Up to n RAW bytes from the internal buffer.  Snapshot transfer
+        interleaves length-delimited raw byte runs with RESP frames on one
+        stream (reference src/conn/reader.rs:104-121 `save_to_file`); the
+        parser may have buffered past the frame boundary, so the raw run
+        must drain from here before reading the socket directly."""
+        end = min(self._pos + n, len(self._buf))
+        data = bytes(self._buf[self._pos:end])
+        self._pos = end
+        self._compact()
+        return data
+
+    def next_msg(self) -> Optional[Msg]:
+        """One complete message, or None if more bytes are needed.
+        Raises InvalidRequestMsg on malformed input."""
+        q = self._q
+        if self._qpos < len(q):
+            m = q[self._qpos]
+            self._qpos += 1
+            if self._qpos >= len(q):
+                q.clear()
+                self._qpos = 0
+            return m
+        return self._parse_one()
+
+    def take_queued(self) -> list:
+        """Pop every already-parsed message out of the delivery queue
+        without touching the byte buffer.  The connection loop's error
+        path uses this to salvage the clean prefix a failed drain()
+        stashed (see drain) before writing the protocol error."""
+        q = self._q
+        out = q[self._qpos:] if self._qpos < len(q) else []
+        q.clear()
+        self._qpos = 0
+        return out
+
+    def drain(self) -> list:
+        """Every complete message currently buffered, in arrival order
+        (the serve path plans a whole pipelined chunk at once —
+        server/io.py).  Equivalent to looping next_msg() until None, but
+        the native subclass hands the whole run over in one C call.
+        Raises InvalidRequestMsg on malformed input; messages parsed
+        before the bad frame stay queued for the error path."""
+        out = self.take_queued()
+        try:
+            while True:
+                m = self._parse_one()
+                if m is None:
+                    return out
+                out.append(m)
+                if self._q:
+                    out.extend(self.take_queued())
+        except InvalidRequestMsg:
+            # stash the clean prefix: the caller's error path can still
+            # execute/reply the messages that parsed before the bad frame
+            # (take_queued) instead of silently dropping them
+            self._q = out
+            self._qpos = 0
+            raise
+
+    def native_drain(self):
+        """One C pass over the buffered pipeline: split AND classify.
+
+        Returns `(ops, payloads)` — parallel lists where ops[i] is a
+        serve-plane opcode (server/serve.py _OP_*; 0 = OTHER with a full
+        Msg payload) — or None when the native intake stage is
+        unavailable or produced nothing.  The scan stops early at any
+        frame it will not own (partial, malformed, SYNC upgrade,
+        oversized); those bytes stay buffered for drain()/next_msg(),
+        which re-parses them with the reference error behavior.  Base
+        class: the stage needs the C scanner, so always None."""
+        return None
+
+    def pushback(self, msgs: list) -> None:
+        """Re-queue already-drained messages at the FRONT of the delivery
+        order (they re-emerge from next_msg()/drain() before anything
+        still in the byte buffer).  Used when a drained chunk turns out
+        to straddle an ownership boundary — e.g. a SYNC upgrade hands the
+        connection (and every message after the SYNC) to the replica
+        link.  Note take_raw() reads the BYTE buffer and ignores this
+        queue; raw snapshot runs never mix with pushed-back messages."""
+        if not msgs:
+            return
+        rest = self.take_queued()
+        self._q = list(msgs) + rest
+        self._qpos = 0
+
+    def _parse_one(self) -> Optional[Msg]:
+        buf = self._buf
+        pos = self._pos
+        blen = len(buf)
+        if pos >= blen:
+            return None
+        if buf[pos] == 0x2A:  # '*' — fast path: flat array of bulk strings,
+            # the shape of every client command (pipelined op throughput
+            # lives or dies here); anything else falls back to _parse
+            find = buf.find
+            e = find(_CRLF, pos + 1)
+            if e < 0:
+                if blen - pos > 1 << 20:
+                    raise InvalidRequestMsg("line too long")
+                return None
+            try:
+                n = int(buf[pos + 1:e])
+            except ValueError:
+                raise InvalidRequestMsg("invalid array length") from None
+            if 0 <= n <= 1 << 20:
+                items = []
+                p = e + 2
+                for _ in range(n):
+                    if p >= blen:
+                        break
+                    c = buf[p]
+                    if c == 0x24:  # '$' bulk
+                        e = find(_CRLF, p + 1)
+                        if e < 0:
+                            break
+                        try:
+                            ln = int(buf[p + 1:e])
+                        except ValueError:
+                            raise InvalidRequestMsg(
+                                "invalid bulk length") from None
+                        if ln > self.max_bulk:
+                            # same cap as the general path below: a huge
+                            # declared length must fail fast, not buffer
+                            raise InvalidRequestMsg("bulk string too large")
+                        if ln < 0:
+                            break  # $-1 Nil inside arrays: general path
+                        end = e + 2 + ln + 2
+                        if end > blen:
+                            break
+                        if buf[end - 2:end] != _CRLF:
+                            raise InvalidRequestMsg("bulk string missing CRLF")
+                        items.append(Bulk(bytes(buf[e + 2:end - 2])))
+                        p = end
+                    elif c == 0x3A:  # ':' int (replication frames)
+                        e = find(_CRLF, p + 1)
+                        if e < 0:
+                            break
+                        try:
+                            items.append(Int(int(buf[p + 1:e])))
+                        except ValueError:
+                            raise InvalidRequestMsg(
+                                "invalid integer line") from None
+                        p = e + 2
+                    else:
+                        break  # nested/unusual item: general path
+                else:
+                    self._pos = p
+                    self._compact()
+                    return Arr(items)
+                # partial or non-flat frame: fall through to _parse below
+        start = pos
+        try:
+            m = self._parse(0)
+        except _NeedMore:
+            self._pos = start
+            return None
+        self._compact()
+        return m
+
+    # --- internals ---
+
+    def _line(self) -> bytes:
+        idx = self._buf.find(_CRLF, self._pos)
+        if idx < 0:
+            # guard: a line that never terminates is malformed, not "partial"
+            if len(self._buf) - self._pos > 1 << 20:
+                raise InvalidRequestMsg("line too long")
+            raise _NEED_MORE
+        line = bytes(self._buf[self._pos:idx])
+        self._pos = idx + 2
+        return line
+
+    def _int_line(self) -> int:
+        line = self._line()
+        try:
+            return int(line)
+        except ValueError:
+            raise InvalidRequestMsg(f"invalid integer line {line[:32]!r}") from None
+
+    def _parse(self, depth: int) -> Msg:
+        if depth > self.max_depth:
+            raise InvalidRequestMsg("nesting too deep")
+        if self._pos >= len(self._buf):
+            raise _NEED_MORE
+        t = self._buf[self._pos]
+        self._pos += 1
+        if t == 0x2B:  # '+'
+            return Simple(self._line())
+        if t == 0x2D:  # '-'
+            return Err(self._line())
+        if t == 0x3A:  # ':'
+            return Int(self._int_line())
+        if t == 0x24:  # '$'
+            n = self._int_line()
+            if n < 0:
+                if n != -1:  # only $-1 is Nil; other negatives are malformed
+                    raise InvalidRequestMsg("negative bulk length")
+                return NIL
+            if n > self.max_bulk:
+                raise InvalidRequestMsg("bulk string too large")
+            end = self._pos + n + 2
+            if end > len(self._buf):
+                raise _NEED_MORE
+            val = bytes(self._buf[self._pos:self._pos + n])
+            if self._buf[self._pos + n:end] != _CRLF:
+                raise InvalidRequestMsg("bulk string missing CRLF")
+            self._pos = end
+            return Bulk(val)
+        if t == 0x2A:  # '*'
+            n = self._int_line()
+            if n < 0:
+                if n != -1:
+                    raise InvalidRequestMsg("negative array length")
+                return NIL
+            if n > 1 << 20:
+                raise InvalidRequestMsg("array too large")
+            return Arr([self._parse(depth + 1) for _ in range(n)])
+        if t == 0x3E:  # '>' — RESP3 push frame (client-side parse of
+            # invalidation broadcasts; a push is never nil-length).  The
+            # native scanners defer unknown type bytes here, so both
+            # parsers share this one branch.
+            n = self._int_line()
+            if n < 0:
+                raise InvalidRequestMsg("negative push length")
+            if n > 1 << 20:
+                raise InvalidRequestMsg("push frame too large")
+            return Push([self._parse(depth + 1) for _ in range(n)])
+        raise InvalidRequestMsg(f"unexpected type byte {bytes([t])!r}")
+
+
+class NativeRespParser(RespParser):
+    """RespParser with the flat-command fast path in C.
+
+    `native/resp.cpp resp_parse` scans the shared buffer and returns
+    fully-constructed Arr/Bulk/Int messages (built at C speed via
+    tp_alloc + slot set); anything it cannot fast-parse — nested arrays,
+    replies, `$-1`/`*0` — is handed, one message at a time, to the
+    inherited pure-Python parser, so the output is bit-identical either
+    way.  The op path is parse-bound (OPBENCH.md); this is our answer to
+    the reference's N-parse-threads design (reference src/lib.rs:138-142)
+    under the single-writer loop.
+    """
+
+    __slots__ = ()
+
+    def native_drain(self):
+        """The native intake stage (native/intake.cpp intake_scan): one C
+        call consumes every leading well-formed flat command frame and
+        returns opcodes + pre-flattened payloads for the plannable set.
+        Declines (None) when pushed-back messages are queued (they must
+        re-emerge first, in order), or when the scan consumed nothing."""
+        if self._qpos < len(self._q):
+            return None
+        ops, payloads, new_pos = _intake()(
+            self._buf, self._pos, Arr, Bulk, Int, Simple, Err, NIL,
+            self.max_bulk)
+        if not ops:
+            return None
+        self._pos = new_pos
+        self._compact()
+        return ops, payloads
+
+    def _parse_one(self) -> Optional[Msg]:
+        try:
+            # max_bulk rides into the C scanner so an absurd $-header is
+            # rejected at HEADER-parse time (the scanner defers it to the
+            # pure parser, which raises) — never buffered toward.
+            msgs, new_pos, fallback = _ext().resp_parse(
+                self._buf, self._pos, Arr, Bulk, Int, Simple, Err,
+                NIL, 1024, self.max_bulk)
+        except ValueError as e:
+            raise InvalidRequestMsg(str(e)) from None
+        self._pos = new_pos
+        self._compact()
+        if msgs:
+            if len(msgs) > 1:
+                # only called with the delivery queue empty (next_msg /
+                # drain pop it first), so the overflow can take it over
+                self._q = msgs
+                self._qpos = 1
+            return msgs[0]
+        if fallback:
+            return super()._parse_one()
+        return None
+
+
+_EXT_CACHE: list = []
+
+
+def _ext():
+    """The port's native extension (utils/native.py: built at first use;
+    a failed build raises).  It always carries resp_parse, resp_encode
+    and intake_scan."""
+    if not _EXT_CACHE:
+        from ..utils.native import load
+        _EXT_CACHE.append(load().ext)
+    return _EXT_CACHE[0]
+
+
+def _enc():
+    return _ext().resp_encode
+
+
+def _intake():
+    return _ext().intake_scan
+
+
+def make_parser() -> RespParser:
+    """The native parser.  Its messages are identical to the pure
+    RespParser's, which stays as the tests' oracle."""
+    return NativeRespParser()

@@ -16,7 +16,12 @@ consolidates the shards into one serving store.
 The steady state has two more generators (see their docstrings):
 `make_stream_workload`, a peer's replication stream as the coalescer
 lands it, and `make_tensor_workload`, tensor-register contributions;
-`replay_oracle` replays either through the CPU engine.
+`replay_oracle` replays either through the CPU engine.  Through the
+node: `make_frame_log` is the same stream as REPLICATE frames (bench.py
+--mode stream's log), `replay_stream` drives its RESP bytes through a
+node's parser and coalescer, `wire_frames` / `wire_replay` ship a
+pusher's repl_log as its push loop splits it (REPLBATCH runs), and
+`tensor_peer_frames` makes several peers' tensor contributions.
 
 One shape is added: `aligned_counters=True` gives every replica's dump
 the counter slots of all R writer nodes, the way a converged cluster's
@@ -394,42 +399,46 @@ APPLY_BATCH = 512            # CONSTDB_APPLY_BATCH: frames per coalescer flush
 STREAM_ORIGIN = 99           # the peer node id of the replicated stream
 
 
-def _stream_frames(n_frames: int, n_keys: int, seed: int):
+def _frame_bodies(n_frames: int, n_keys: int, seed: int):
     """The replicate-frame mix of bench.py make_frame_log, draw for draw
-    (Python's `random` with the same seed): -> [(cmd, key, args, uuid)].
-    Collection deletes (`delset`) are dropped: they are coalescer
-    barriers that apply through the node's per-key op path."""
+    (Python's `random` with the same seed): yields (uuid, (cmd, key,
+    args...)), collection deletes (`delset`) included."""
     import random
     rng = random.Random(seed)
-    out = []
     for i in range(1, n_frames + 1):
         uuid = (MS0 + i) << SEQ_BITS
         k = b"%06d" % rng.randrange(n_keys)
         r = rng.random()
         if r < 0.30:
-            out.append((b"set", b"r" + k, (b"v%08d" % i,), uuid))
+            yield uuid, (b"set", b"r" + k, b"v%08d" % i)
         elif r < 0.52:
-            out.append((b"cntset", b"c" + k,
-                        (rng.randrange(-10_000, 10_000),), uuid))
+            yield uuid, (b"cntset", b"c" + k,
+                         rng.randrange(-10_000, 10_000))
         elif r < 0.72:
-            out.append((b"sadd", b"s" + k,
-                        tuple(b"m%03d" % rng.randrange(64)
-                              for _ in range(4)), uuid))
+            yield uuid, (b"sadd", b"s" + k,
+                         *(b"m%03d" % rng.randrange(64) for _ in range(4)))
         elif r < 0.80:
-            out.append((b"srem", b"s" + k,
-                        (b"m%03d" % rng.randrange(64),), uuid))
+            yield uuid, (b"srem", b"s" + k, b"m%03d" % rng.randrange(64))
         elif r < 0.90:
             fv = []
             for f in range(5):
                 fv += [b"f%02d" % rng.randrange(16), b"v%07d%d" % (i, f)]
-            out.append((b"hset", b"h" + k, tuple(fv), uuid))
+            yield uuid, (b"hset", b"h" + k, *fv)
         elif r < 0.995:
-            out.append((b"hdel", b"h" + k,
-                        (b"f%02d" % rng.randrange(16),), uuid))
+            yield uuid, (b"hdel", b"h" + k, b"f%02d" % rng.randrange(16))
         elif r < 0.998:
-            out.append((b"delbytes", b"r" + k, (), uuid))
-        # else: delset, a barrier (dropped, see the docstring)
-    return out
+            yield uuid, (b"delbytes", b"r" + k)
+        else:
+            yield uuid, (b"delset", b"s" + k)
+
+
+def _stream_frames(n_frames: int, n_keys: int, seed: int):
+    """`_frame_bodies` as [(cmd, key, args, uuid)], the collection deletes
+    (`delset`) dropped: they are coalescer barriers that apply through the
+    node's per-key op path, which `make_stream_workload` bypasses."""
+    return [(body[0], body[1], body[2:], uuid)
+            for uuid, body in _frame_bodies(n_frames, n_keys, seed)
+            if body[0] != b"delset"]
 
 
 _ELEM_ENC = {b"sadd": S.ENC_SET, b"srem": S.ENC_SET, b"hset": S.ENC_DICT,
@@ -604,3 +613,229 @@ def replay_oracle(batches) -> KeySpace:
 def batch_keys(batches) -> list:
     """Distinct key bytes of a workload, in first-appearance order."""
     return list(dict.fromkeys(k for b in batches for k in b.keys))
+
+
+# ------------------------------------------- replication through the node
+
+REPLAY_CHUNK = 1 << 20       # bytes fed to the parser at a time
+WIRE_RUN = 512               # frames of one drained push run (APPLY_BATCH)
+WIRE_RUN_BYTES = 1 << 18     # the push loop's byte cap on a drained run
+MIN_WIRE_RUN = 2             # shorter encodable runs ship per frame
+
+
+def make_frame_log(n_frames: int, n_keys: int, seed: int = 11) -> list:
+    """A peer's steady-state stream as REPLICATE frames (the item lists of
+    `*[replicate, origin, prev_uuid, uuid, cmd, args...]`), bench.py
+    make_frame_log draw for draw: the mix of `make_stream_workload` with
+    the collection deletes (`delset`, 0.2%) kept, so they reach the
+    coalescer as barriers."""
+    from .resp.message import Bulk, Int
+    frames = []
+    prev = 0
+    for uuid, body in _frame_bodies(n_frames, n_keys, seed):
+        frames.append([Bulk(b"replicate"), Int(STREAM_ORIGIN), Int(prev),
+                       Int(uuid), Bulk(body[0]),
+                       *[Int(a) if isinstance(a, int) else Bulk(a)
+                         for a in body[1:]]])
+        prev = uuid
+    return frames
+
+
+def frame_log_bytes(frames) -> bytes:
+    """The frames' RESP encoding, as the pull loop reads them off the
+    socket (bench.py save_frame_log)."""
+    from .resp.codec import encode_into
+    from .resp.message import Arr
+    out = bytearray()
+    for items in frames:
+        encode_into(out, Arr(items))
+    return bytes(out)
+
+
+def replay_stream(data: bytes, node, apply_batch: int, latency_s: float,
+                  now=time.perf_counter, sync=None) -> tuple:
+    """A peer's RESP stream through the node as the pull loop drives it
+    (bench.py replay_stream): `make_parser()` fed REPLAY_CHUNK bytes at a
+    time, every frame into `CoalescingApplier.apply`, then the final
+    `flush()`, `node.ensure_flushed()` and `sync()` (the card's
+    synchronize).  `now` is the applier's clock and the latencies'.
+    Visibility latency, intake -> landed, is sampled every 64th frame
+    (0.0 for a frame that landed at intake).
+    -> (applier, wall seconds, latencies)."""
+    from .replica.coalesce import CoalescingApplier
+    from .replica.manager import ReplicaMeta
+    from .resp.codec import make_parser
+
+    applier = CoalescingApplier(node, ReplicaMeta("bench-peer:0"),
+                                max_frames=apply_batch,
+                                max_latency=latency_s, now=now)
+    parser = make_parser()
+    lat: list = []
+    pending_ts: list = []
+    real_land = node.merge_stream_batch
+
+    def landing(bb, n):
+        real_land(bb, n)
+        t = now()
+        lat.extend(t - x for x in pending_ts)
+        pending_ts.clear()
+
+    node.merge_stream_batch = landing
+    try:
+        i = 0
+        t0 = now()
+        for off in range(0, len(data), REPLAY_CHUNK):
+            parser.feed(data[off:off + REPLAY_CHUNK])
+            while (msg := parser.next_msg()) is not None:
+                applier.apply(msg.items)
+                if not i & 63:
+                    if not applier.pending:
+                        lat.append(0.0)
+                    else:
+                        pending_ts.append(now())
+                i += 1
+        applier.flush()
+        node.ensure_flushed()
+        if sync is not None:
+            sync()
+        end = now()
+    finally:
+        del node.merge_stream_batch
+    lat.extend(end - t for t in pending_ts)
+    return applier, end - t0, lat
+
+
+def push_log(node, frames) -> None:
+    """Append the frames' ops to `node`'s repl_log, as the pusher's own
+    writes put them there (their uuids, names and arguments)."""
+    from .resp.message import as_bytes, as_int
+    for items in frames:
+        node.repl_log.push(as_int(items[3]), as_bytes(items[4]),
+                           list(items[5:]))
+
+
+def wire_frames(pusher, run_frames: int = WIRE_RUN) -> tuple:
+    """The pusher's repl_log as its push loop ships it to a batching
+    peer (the split of replica/link.py `_encode_wire_run`): runs drained
+    `run_frames` entries (at most WIRE_RUN_BYTES) at a time; in each,
+    maximal sub-runs of at least MIN_WIRE_RUN encodable ops become
+    REPLBATCH frames (`build_wire_batch`), every other op a REPLICATE
+    frame.  -> (frames, stats: payload bytes, batches, frames sent in
+    batches and singly)."""
+    from .replica import wire
+    from .resp.message import Bulk, Int
+    from .server.commands import COLUMNAR_ENCODERS
+
+    nid = pusher.node_id
+    enc_has = COLUMNAR_ENCODERS.__contains__
+    out = []
+    st = {"payload_bytes": 0, "batches": 0, "batch_frames": 0,
+          "single_frames": 0}
+    cursor = 0
+    while True:
+        run = pusher.repl_log.run_after(cursor, run_frames, WIRE_RUN_BYTES)
+        if not run:
+            break
+        i, n = 0, len(run)
+        while i < n:
+            j = i
+            while j < n and enc_has(run[j].name):
+                j += 1
+            if j - i >= MIN_WIRE_RUN:
+                sub = run[i:j]
+                payload = wire.build_wire_batch(sub, nid)
+                if payload is None:
+                    raise RuntimeError(f"the wire codec declined a run of "
+                                       f"{len(sub)} encodable ops")
+                out.append([Bulk(b"replbatch"), Int(nid),
+                            Int(sub[0].prev_uuid), Int(sub[-1].uuid),
+                            Int(len(sub)), Bulk(payload)])
+                st["payload_bytes"] += len(payload)
+                st["batches"] += 1
+                st["batch_frames"] += len(sub)
+                i = j
+                continue
+            stop = j if j > i else i + 1
+            for e in run[i:stop]:
+                out.append([Bulk(b"replicate"), Int(nid), Int(e.prev_uuid),
+                            Int(e.uuid), Bulk(e.name), *e.args])
+            st["single_frames"] += stop - i
+            i = stop
+        cursor = run[-1].uuid
+    return out, st
+
+
+def wire_replay(frames, node, sync=None) -> tuple:
+    """`wire_frames`' output into `node` through one CoalescingApplier
+    (APPLY_BATCH frames):
+    REPLBATCH frames through `apply_wire_batch`, REPLICATE frames through
+    `apply`, then `flush()`, `ensure_flushed()` and `sync()`.  The
+    payloads' decode (`wire.decode_wire_batch`) is timed apart.
+    -> (applier, wall seconds, decode seconds)."""
+    from .replica import wire
+    from .replica.coalesce import CoalescingApplier
+    from .replica.manager import ReplicaMeta
+
+    applier = CoalescingApplier(node, ReplicaMeta("wire-peer:0"),
+                                max_frames=APPLY_BATCH, max_latency=1e9)
+    decode = wire.decode_wire_batch
+    spent = [0.0]
+
+    def timed_decode(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return decode(*a, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t
+
+    wire.decode_wire_batch = timed_decode
+    try:
+        t0 = time.perf_counter()
+        for items in frames:
+            if items[0].val == b"replbatch":
+                applier.apply_wire_batch(items)
+            else:
+                applier.apply(items)
+        applier.flush()
+        node.ensure_flushed()
+        if sync is not None:
+            sync()
+        wall = time.perf_counter() - t0
+    finally:
+        wire.decode_wire_batch = decode
+    return applier, wall, spent[0]
+
+
+def tensor_peer_frames(n_peers: int, n_rounds: int, n_keys: int,
+                       elems: int, seed: int = 17) -> list:
+    """Tensor contributions from `n_peers` peers as each one's REPLICATE
+    stream of `tset` frames (origin = peer id 1..n_peers): every round
+    each peer writes every key once, `elems` f32 from a seeded normal
+    draw, a count in [1, 8).  Key k's strategy is the k-th of
+    sum, maxmag, trimmed-mean, avg and lww, in turn.
+    -> [per peer: [per round: [frame items]]]."""
+    from .resp.message import Bulk, Int
+    rng = np.random.default_rng(seed)
+    strats = ("sum", "maxmag", "trimmed-mean", "avg", "lww")
+    cfgs = [T.pack_config(T.TensorMeta(T.STRATEGY_IDS[strats[k % 5]], 0,
+                                       (elems,)))
+            for k in range(n_keys)]
+    out = [[] for _ in range(n_peers)]
+    prev = [0] * n_peers
+    u = 0
+    for _r in range(n_rounds):
+        for p in range(n_peers):
+            pay = (rng.standard_normal((n_keys, elems)) * 4).astype(
+                np.float32)
+            cnt = rng.integers(1, 8, size=n_keys)
+            rnd = []
+            for k in range(n_keys):
+                u += 1
+                uuid = (MS0 + u) << SEQ_BITS
+                rnd.append([Bulk(b"replicate"), Int(p + 1), Int(prev[p]),
+                            Int(uuid), Bulk(b"tset"), Bulk(b"t%06d" % k),
+                            Bulk(cfgs[k]), Int(int(cnt[k])),
+                            Bulk(pay[k].tobytes())])
+                prev[p] = uuid
+            out[p].append(rnd)
+    return out

@@ -120,3 +120,56 @@ def test_native_build_reads_nothing_outside_the_port():
             p = Path(a.split("=", 1)[-1])
             if p.is_absolute() and ROOT in p.parents:
                 assert PORT in p.parents, f"build reads {a}"
+
+
+def test_node_raises_without_a_card(monkeypatch):
+    from constdb_tpu_torch.server.node import Node
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Node()
+    assert Node(device="cpu").engine.device.type == "cpu"
+
+
+def test_native_copies_and_their_entry_points():
+    """The scanners are the port's own copies of the reference's sources,
+    included by its pyext.cpp and exported by its one extension."""
+    from constdb_tpu_torch.utils import native
+
+    text = (native.SRC / "pyext.cpp").read_text()
+    for name in ("resp", "intake", "wire"):
+        assert f'#include "{name}.cpp"' in text
+        ref = (ROOT / "native" / f"{name}.cpp").read_text().splitlines()
+        port = (native.SRC / f"{name}.cpp").read_text().splitlines()
+        # the port's copy: the reference's lines after its own header note
+        assert [ln for ln in port if "port's own copy" not in ln
+                and ln != "//"] == [ln for ln in ref if ln != "//"]
+    assert "aof.cpp" not in text
+    ext = native.load().ext
+    for fn in ("resp_parse", "resp_encode", "intake_scan",
+               "wire_pack_blobs", "wire_unpack_blobs"):
+        assert callable(getattr(ext, fn))
+
+
+def test_scanners_have_no_pure_fallback(monkeypatch):
+    """An extension without the scanners' entry points raises: neither
+    make_parser nor the wire packers take the pure path for it."""
+    from constdb_tpu_torch.replica import wire
+    from constdb_tpu_torch.resp import codec
+
+    class NoScanners:
+        pass
+
+    monkeypatch.setattr(codec, "_EXT_CACHE", [NoScanners()])
+    parser = codec.make_parser()
+    assert type(parser) is codec.NativeRespParser
+    parser.feed(b"*1\r\n$4\r\nping\r\n")
+    with pytest.raises(AttributeError):
+        parser.next_msg()
+    with pytest.raises(AttributeError):
+        codec.encode_msg(codec.Bulk(b"x"))
+    monkeypatch.setattr(wire, "_WIRE_NATIVE_CACHE", [])
+    monkeypatch.setattr("constdb_tpu_torch.utils.native.load",
+                        lambda: type("N", (), {"ext": NoScanners()})())
+    with pytest.raises(AttributeError):
+        wire._pack_blobs(bytearray(), [b"a"])
