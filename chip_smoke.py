@@ -119,16 +119,21 @@ Phases, one line each; any failure raises and exits non-zero:
                frames, 5 ms), the group encoders, barriers through the
                per-key op path, K3 rounds; logged: frames/s, sampled
                visibility latency p50/p99, coalesced flushes, barriers,
-               device and host rounds, engine flushes, mirror rebuilds,
-               uploads, peak memory; checked: canonical() and the counter
-               sums equal to the per-frame replay (apply_batch=1) through
-               a CpuMergeEngine Node, one barrier per delset frame, K3
-               launches equal to the device rounds (> 0).  (b) the same
+               device and host rounds, engine flushes, mirror rebuilds
+               and patches, rounds and rows per family on the host twin
+               and on the device, uploads, peak memory; checked:
+               canonical() and the counter sums equal to the per-frame
+               replay (apply_batch=1) through a CpuMergeEngine Node, one
+               barrier per delset frame, K3 launches equal to the device
+               rounds (> 0), no family on its host twin past the warm-up
+               and no mirror rebuilt.  (b) the same
                ops in a pusher Node's repl_log, split as the push loop
                splits a drained run (workload.wire_frames: REPLBATCH runs
                of up to 512 ops, barriers and short runs as single
                frames, outside the span), through apply_wire_batch /
-               apply into a fresh card Node: canonical equal to (a)'s.
+               apply into a fresh card Node: canonical equal to (a)'s,
+               K3 launches equal to its device rounds, the same
+               placement checks.
                (c) 8 peers' tset frames (128 keys x 4096 f32, 3 rounds),
                one CoalescingApplier each, then Node.tensor_read of every
                key (K5): reads bit-equal to a CPU node's (a NaN matching
@@ -1721,6 +1726,29 @@ def same_reads(got, want) -> bool:
     return bool(np.array_equal(got.view(ui)[~nan], want.view(ui)[~nan]))
 
 
+def placement_shares(eng) -> dict:
+    """The steady rounds and rows each family merged on its host twin
+    and in place on the device ([host, device]), and the host's share of
+    each family's rows."""
+    rows = {f: list(v) for f, v in eng.micro_rows.items() if sum(v)}
+    return {"micro_rounds": {f: list(v) for f, v in eng.micro_rounds.items()
+                             if sum(v)},
+            "micro_rows": rows,
+            "host_row_share": {f: v[0] / sum(v) for f, v in rows.items()}}
+
+
+def check_placement(label: str, eng) -> None:
+    """Past the warm-up every family stays on the device: the barriers'
+    writes are key-confined, so they patch the mirrors (no rebuild), and
+    no family merges on its host twin in more rounds than the warm-up."""
+    host = {f: v[0] for f, v in eng.micro_rounds.items()
+            if v[0] > eng.warmup}
+    if host or any(eng.mirror_rebuilds.values()):
+        raise AssertionError(f"{label}: host rounds past the warm-up of "
+                             f"{eng.warmup}: {host}, mirror rebuilds "
+                             f"{eng.mirror_rebuilds}")
+
+
 def replication_phase(dev, n_frames: int, stream_keys: int) -> dict:
     """Phase 10: a peer's replication stream through the port's Node on
     the card.  (a) RESP bytes -> make_parser -> CoalescingApplier (512
@@ -1807,6 +1835,8 @@ def replication_phase(dev, n_frames: int, stream_keys: int) -> dict:
          "k3_launches": launches_a["scatter_pair_src"],
          "engine_flushes": flushes[0],
          "mirror_rebuilds": dict(eng.mirror_rebuilds),
+         "mirror_patches": dict(eng.mirror_patches),
+         **placement_shares(eng),
          "bytes_h2d": eng.bytes_h2d, "h2d_copies": eng.h2d_copies,
          "bytes_d2h": eng.bytes_d2h, "peak_mem_bytes": peak_a,
          "family_secs": {k: round(v, 3) for k, v in eng.family_secs.items()},
@@ -1814,9 +1844,7 @@ def replication_phase(dev, n_frames: int, stream_keys: int) -> dict:
          "parse_intake_encode_s": wall - spent["land"] - spent["barrier"],
          "engine_merge_s": st.merge_secs, "engine_flush_s": st.flush_secs,
          "gen_s": t_gen}
-    # the parse alone, native (the span's) and pure; every REPLICATE
-    # frame carries a 19-digit uuid, past the C scanner's 18-digit fast
-    # path, so it defers each frame to the pure parser
+    # the parse alone, native (the span's) and pure
     for key, mk in (("parse_alone_s", make_parser),
                     ("parse_pure_s", RespParser)):
         t0 = time.perf_counter()
@@ -1852,6 +1880,7 @@ def replication_phase(dev, n_frames: int, stream_keys: int) -> dict:
         raise AssertionError(f"replication: K3 launched "
                              f"{launches_a['scatter_pair_src']} times in "
                              f"{rounds} device rounds")
+    check_placement("replication", eng)
     del oracle
     eng.close()
     del node, eng, applier
@@ -1871,6 +1900,8 @@ def replication_phase(dev, n_frames: int, stream_keys: int) -> dict:
         f"{rounds} (K3 launches {launches_a['scatter_pair_src']}), on the "
         f"host {a['host_micro_rounds']}, engine flushes "
         f"{a['engine_flushes']}, mirror rebuilds {a['mirror_rebuilds']}, "
+        f"patches {a['mirror_patches']}, rounds per family [host, device] "
+        f"{a['micro_rounds']}, rows {a['micro_rows']}, "
         f"up {a['bytes_h2d']} B in {a['h2d_copies']} copies, peak "
         f"{peak_a} B; {len(keys)} keys and their counter sums equal to the "
         f"per-frame CPU replay {json.dumps(a)}")
@@ -1901,6 +1932,9 @@ def replication_phase(dev, n_frames: int, stream_keys: int) -> dict:
          "dev_rounds_resident": eng.dev_rounds_resident,
          "host_micro_rounds": eng.host_micro_rounds,
          "k3_launches": launches_b["scatter_pair_src"],
+         "mirror_rebuilds": dict(eng.mirror_rebuilds),
+         "mirror_patches": dict(eng.mirror_patches),
+         **placement_shares(eng),
          "repl_wire_batches_in": node.stats.repl_wire_batches_in,
          "repl_apply_barriers": node.stats.repl_apply_barriers}
     if node.canonical() != got:
@@ -1910,8 +1944,12 @@ def replication_phase(dev, n_frames: int, stream_keys: int) -> dict:
             node.stats.repl_wire_batches_in != wst["batches"]:
         raise AssertionError(f"replication (b): {wst} for {n_frames} "
                              "frames")
-    if not launches_b["scatter_pair_src"]:
-        raise AssertionError("replication (b): K3 was not launched")
+    if not eng.dev_rounds_resident or \
+            launches_b["scatter_pair_src"] != eng.dev_rounds_resident:
+        raise AssertionError(f"replication (b): K3 launched "
+                             f"{launches_b['scatter_pair_src']} times in "
+                             f"{eng.dev_rounds_resident} device rounds")
+    check_placement("replication (b)", eng)
     eng.close()
     del node, eng, applier, got, want, frames, data, wframes
     log(f"replication (b): the ops as the push loop ships them, "
@@ -1922,7 +1960,8 @@ def replication_phase(dev, n_frames: int, stream_keys: int) -> dict:
         f"({b['frames_per_s']:.0f} frames/s), decode {decode_s:.3f} s, "
         f"landing {b['land_s']:.3f} s (engine merge "
         f"{b['engine_merge_s']:.3f} s), barriers {b['barrier_s']:.3f} s; "
-        f"canonical equal to (a)'s {json.dumps(b)}")
+        f"rounds per family [host, device] {b['micro_rounds']}, rows "
+        f"{b['micro_rows']}; canonical equal to (a)'s {json.dumps(b)}")
 
     # (c) tensor contributions from 8 peers, reads through the node
     n_peers, n_rounds, n_keys, elems = 8, 3, 128, 4096

@@ -40,10 +40,6 @@ ENV_REGISTRY = {
                                     "accepts (default and ceiling 512 MiB)",
     "CONSTDB_TORCH_UNDO_WINDOW": "locally originated counter ops CNTUNDO "
                                  "can invert (default 4096)",
-    "CONSTDB_TORCH_ENCODE_CACHE_MB": "encode-once run cache bytes; 0 "
-                                     "disables (default 16)",
-    "CONSTDB_TORCH_READ_CACHE_MB": "versioned reply cache bytes; 0 "
-                                   "disables (default 16)",
     "CONSTDB_TORCH_TENSOR_STRATEGY": "strategy of a tensor key created "
                                      "without one (default lww)",
     "CONSTDB_TORCH_TENSOR_MAX_ELEMS": "largest tensor a TSET may carry "
@@ -53,12 +49,6 @@ ENV_REGISTRY = {
     "CONSTDB_TORCH_MAXMEMORY_SOFT_PCT": "soft watermark, percent of "
                                         "MAXMEMORY, past which client "
                                         "writes are shed (default 85.0)",
-    "CONSTDB_TORCH_TRACKING_BATCH": "client tracking: invalidation keys "
-                                    "per push flush (default 128)",
-    "CONSTDB_TORCH_TRACKING_LATENCY_MS": "client tracking: max delay of a "
-                                         "pending invalidation (default 2)",
-    "CONSTDB_TORCH_TRACKING_MAX_KEYS": "client tracking: tracked keys "
-                                       "before a flush-all (default 65536)",
 }
 
 

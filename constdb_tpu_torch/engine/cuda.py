@@ -243,6 +243,12 @@ class TorchMergeEngine:
         self.folds = 0          # aligned folds performed (observability)
         # stale-mirror rebuilds per family (op writes between rounds)
         self.mirror_rebuilds = dict.fromkeys(FAMILIES, 0)
+        # stale mirrors patched in place after key-confined op writes
+        self.mirror_patches = dict.fromkeys(FAMILIES, 0)
+        # steady micro rounds and rows per family: [on the host twin,
+        # in place on the device]
+        self.micro_rounds = {f: [0, 0] for f in ("reg", "cnt", "el", "tns")}
+        self.micro_rows = {f: [0, 0] for f in ("reg", "cnt", "el", "tns")}
         # cumulative host seconds per family on the critical path
         # (stage-wait + dispatch); `flush` includes its downloads and
         # `sums` (the device counter-sum re-derivation), `host` the
@@ -593,6 +599,8 @@ class TorchMergeEngine:
                 for b, kid_of in resolved:
                     self._merge_micro_resident(store, b, kid_of, st,
                                                placement)
+                for fam, on_dev in placement.items():
+                    self.micro_rounds[fam][on_dev] += 1
                 if any(placement.values()):
                     self.dev_rounds_resident += 1
                 elif placement:
@@ -1000,10 +1008,13 @@ class TorchMergeEngine:
         """Device state dict for family `fam` covering rows [0, n); grows
         (neutral-filled) as the host table grows.  -> (cols, cap).
 
-        The mirror records the host plane's write version at build time;
-        an op-path write or GC to THIS plane forces a rebuild from host."""
+        The mirror records the host plane's write version at build time.
+        After key-confined op writes (KeySpace.touch_key) it patches those
+        keys' rows from the host; any other op-path write or GC to THIS
+        plane forces a rebuild from host."""
         res = self._res.get(fam)
         ver = store.fam_ver[fam]
+        patch = None
         if res is not None and res.get("ver") != ver:
             # a stale mirror never holds unflushed device data (the caller
             # flushes before every op-path write); if it does, that
@@ -1012,8 +1023,14 @@ class TorchMergeEngine:
                 raise RuntimeError(
                     f"{fam} mirror invalidated with unflushed merge data "
                     "(flush-before-touch invariant broken upstream)")
-            self.mirror_rebuilds[fam] += 1
-            res = None
+            kids = store.keys_since(fam, res["ver"])
+            if kids is not None:
+                patch = store.rows_of_keys(fam, kids)
+            if patch is None or (len(patch) and patch[-1] >= n):
+                self.mirror_rebuilds[fam] += 1
+                res = patch = None
+            else:
+                self.mirror_patches[fam] += 1
         cap = self._sp_size(n)
         spec = _FAMILIES[fam]
         if res is None:
@@ -1036,6 +1053,8 @@ class TorchMergeEngine:
         else:
             cols = res["cols"]
             cap = res["cap"]
+        if patch is not None and len(patch):
+            self._patch_rows(store, fam, cols, patch)
         # a fresh build starts clean (dirty=[]: host == device); a reused
         # or grown mirror keeps its flush state (the micro path appends
         # touched rows between flushes, a bulk merge marks it whole)
@@ -1046,6 +1065,22 @@ class TorchMergeEngine:
                           "recon": res.get("recon") if res else None,
                           "dirty": res.get("dirty") if res else []}
         return cols, cap
+
+    def _patch_rows(self, store: KeySpace, fam: str, cols: dict,
+                    rows: np.ndarray) -> None:
+        """Copy the host's current values of `rows` into the mirror (the
+        rows a key-confined op write touched, all below the mirror's n):
+        the row ids and every column in one copy."""
+        table = _host_table(store, fam)
+        names = [c for c, _ in _FAMILIES[fam]]
+        up = self._h2d(np.stack([rows] + [table.col(c)[rows]
+                                          for c in names]).astype(_I64))
+        idx = up[0]
+        if fam == "env":
+            cols["stack"][idx] = up[1:].T
+            return
+        for i, c in enumerate(names):
+            cols[c][idx] = up[1 + i]
 
     def _family_done(self, fam: str, cols: dict, n: int, cap: int,
                      src=None, written=None, recon=None) -> None:
@@ -1142,11 +1177,20 @@ class TorchMergeEngine:
                 res = None
             else:
                 res = self._res.get(fam)
-            if res is not None and res.get("ver") == ver:
+            if res is not None and (res.get("ver") == ver or
+                                    store.keys_since(fam, res["ver"])
+                                    is not None):
+                # fresh, or behind only by key-confined writes that
+                # _resident_state patches in
                 placement[fam] = True
                 continue
             last_ver, streak = self._warm_streak.get(fam, (-1, 0))
-            streak = streak + 1 if last_ver == ver else 1
+            # key-confined bumps do not reset the streak: once built, the
+            # mirror patches their rows instead of re-uploading the plane
+            steady = last_ver == ver or (
+                last_ver >= 0 and fam != "tns" and
+                store.keys_since(fam, last_ver) is not None)
+            streak = streak + 1 if steady else 1
             self._warm_streak[fam] = (ver, streak)
             placement[fam] = streak > self.warmup
         return placement
@@ -1187,6 +1231,7 @@ class TorchMergeEngine:
                 nonnull_mask(b.reg_val)
             idx = np.nonzero(em)[0]
             if len(idx):
+                self.micro_rows["reg"][bool(placement.get("reg"))] += len(idx)
                 if placement.get("reg"):
                     wk, wt, wn, srci = fold_pair_rows(
                         kid_of[idx], b.reg_t[idx], b.reg_node[idx])
@@ -1206,6 +1251,8 @@ class TorchMergeEngine:
             keep = np.nonzero(kid_arr >= 0)[0]
             if len(keep):
                 st.counter_rows += len(keep)
+                self.micro_rows["cnt"][bool(placement.get("cnt"))] += \
+                    len(keep)
                 sel = slice(None) if len(keep) == len(kid_arr) else keep
                 rows = self._resolve_cnt_rows(store, kid_arr[sel],
                                               b.cnt_node[sel])
@@ -1240,6 +1287,7 @@ class TorchMergeEngine:
             keep = np.nonzero(kid_arr >= 0)[0]
             if len(keep):
                 st.elem_rows += len(keep)
+                self.micro_rows["el"][bool(placement.get("el"))] += len(keep)
                 if len(keep) == len(kid_arr):
                     sel = slice(None)
                     members = b.el_member
@@ -1258,6 +1306,8 @@ class TorchMergeEngine:
 
         self._launch_round(rnd)
         if len(b.tns_ki):
+            self.micro_rows["tns"][bool(placement.get("tns"))] += \
+                len(b.tns_ki)
             self._merge_micro_tns(store, b, kid_of, st,
                                   device=bool(placement.get("tns")))
 

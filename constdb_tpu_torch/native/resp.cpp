@@ -1,6 +1,8 @@
 // Native RESP fast path: parse flat command arrays at C speed.
 //
 // The port's own copy of the reference package's native/resp.cpp.
+// One change (the "port change" block below): a `:` integer takes up to
+// 20 digits through uint_line, so a 64-bit HLC uuid parses in C.
 //
 // The op path is parse-bound (OPBENCH.md): every pipelined client command
 // is a flat `*N` array of `$` bulks / `:` ints, and the pure-Python
@@ -114,6 +116,51 @@ inline int int_line(const char* b, Py_ssize_t len, Py_ssize_t p,
     return 1;
 }
 
+// port change: uint64 integers
+// Scan a `:` integer line as sign + unsigned 64-bit magnitude: up to 20
+// digits, a magnitude past UINT64_MAX defers (-1) like int_line's caps.
+constexpr Py_ssize_t kMaxUDigits = 20;
+constexpr unsigned long long kU64Max = ~0ULL;
+
+inline int uint_line(const char* b, Py_ssize_t len, Py_ssize_t p,
+                     bool* neg, unsigned long long* out, Py_ssize_t* next) {
+    const char* cr = static_cast<const char*>(
+        memchr(b + p, '\r', static_cast<size_t>(len - p)));
+    if (!cr || cr - b + 1 >= len) {
+        if (len - p > kMaxLine) return -1;  // pure parser raises
+        return 0;
+    }
+    Py_ssize_t e = cr - b;
+    if (b[e + 1] != '\n') return -1;  // bare CR: defer to pure parser
+    *neg = false;
+    Py_ssize_t i = p;
+    if (i < e && (b[i] == '-' || b[i] == '+')) {
+        *neg = b[i] == '-';
+        i++;
+    }
+    if (i >= e || e - i > kMaxUDigits) return -1;
+    unsigned long long v = 0;
+    for (; i < e; i++) {
+        if (b[i] < '0' || b[i] > '9') return -1;
+        unsigned d = static_cast<unsigned>(b[i] - '0');
+        if (v > (kU64Max - d) / 10) return -1;  // past 64 bits: defer
+        v = v * 10 + d;
+    }
+    *out = v;
+    *next = e + 2;
+    return 1;
+}
+
+// A Python int of sign + magnitude; nullptr with no error set when a
+// negative magnitude is past INT64_MIN (the caller defers).
+inline PyObject* int_of(bool neg, unsigned long long v) {
+    if (!neg) return PyLong_FromUnsignedLongLong(v);
+    if (v > (1ULL << 63)) return nullptr;
+    return PyLong_FromLongLong(
+        v == (1ULL << 63) ? (-0x7fffffffffffffffLL - 1)
+                          : -static_cast<long long>(v));
+}
+// end of port change
 // the C recursion cap for nested reply arrays: well under the pure
 // parser's max_depth=32, so anything deeper defers (the pure parser
 // then builds it or raises "nesting too deep" — identical either way)
@@ -160,11 +207,16 @@ inline int parse_any(const ParseCtx& c, Py_ssize_t* pos, int depth,
         return 1;
     }
     if (t == ':') {
-        long long v;
+        // port change: uint64 integers
+        bool neg;
+        unsigned long long v;
         Py_ssize_t q;
-        int st = int_line(b, len, *pos + 1, &v, &q);
+        int st = uint_line(b, len, *pos + 1, &neg, &v, &q);
         if (st <= 0) return st;
-        PyObject* obj = make1(c.int_t, nm.val, PyLong_FromLongLong(v));
+        PyObject* val = int_of(neg, v);
+        if (!val) return PyErr_Occurred() ? -2 : -1;
+        PyObject* obj = make1(c.int_t, nm.val, val);
+        // end of port change
         if (!obj) return -2;
         *out = obj;
         *pos = q;

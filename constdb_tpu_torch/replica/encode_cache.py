@@ -27,7 +27,7 @@ were built from — but no new reader can ever be at a cursor below
 `evicted_up_to` (the push loop's `can_resume_from` forces a resync
 first), so such entries are dead weight and are swept.
 
-Bounding: byte-capped LRU (CONSTDB_TORCH_ENCODE_CACHE_MB; 0 disables) plus
+Bounding: byte-capped LRU (ENCODE_CACHE_MB; 0 disables) plus
 ref-counting — an entry is published with the number of OTHER live
 links expected to read it and is dropped the moment the last expected
 reader consumes it (or immediately not cached when there are none, so a
@@ -40,6 +40,10 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from typing import Optional
+
+# the reference's CONSTDB_ENCODE_CACHE_MB default; its knob comes with the
+# push loop that reads the cache (replica/link.py, ROADMAP item 12)
+ENCODE_CACHE_MB = 16
 
 
 class CachedRun:

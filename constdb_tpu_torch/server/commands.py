@@ -398,7 +398,14 @@ def apply_replicated(node: "Node", name: bytes, args: list, origin_nodeid: int,
         _invalidate_read_cache(node, cmd, args, scoped=True)
     reply = cmd.handler(node, ctx, ArgIter(args, name))
     if cmd.is_write:
-        node.ks.touch(*cmd.families)
+        kid = node.ks.lookup(as_bytes(args[0])) \
+            if cmd.name in KEY_SCOPED_BARRIERS and args else -1
+        if kid >= 0:
+            # confined to that key's rows: a resident engine patches
+            # them into its mirrors instead of rebuilding the planes
+            node.ks.touch_key(kid, *cmd.families)
+        else:
+            node.ks.touch(*cmd.families)
     return reply
 
 

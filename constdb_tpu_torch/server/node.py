@@ -234,12 +234,10 @@ class Node:
         self.replicas = ReplicaManager()
         # encode-once run cache: finished wire encodings shared across
         # the push-loop fan-out (replica/encode_cache.py; a registered
-        # used_memory source — server/overload.py).  Env-configured
-        # here; ServerApp overrides via wire_cache.configure.
-        from ..conf import env_int
-        from ..replica.encode_cache import RunEncodeCache
-        self.wire_cache = RunEncodeCache(
-            max(0, env_int("CONSTDB_TORCH_ENCODE_CACHE_MB", 16)) << 20)
+        # used_memory source — server/overload.py), at the reference's
+        # default size until the push loop that reads it is ported
+        from ..replica.encode_cache import ENCODE_CACHE_MB, RunEncodeCache
+        self.wire_cache = RunEncodeCache(ENCODE_CACHE_MB << 20)
         # versioned hot-key reply cache (server/read_cache.py): finished
         # RESP reply bytes served by the coalescer's read planner while
         # a key's state is provably unchanged.  Invalidated at every
@@ -247,10 +245,10 @@ class Node:
         # merge_batch/merge_batches for every batched path) and a
         # registered used_memory source (server/overload.py).  A shard
         # worker's Node owns its own cache — each worker invalidates
-        # exactly its shard.
-        from .read_cache import ReadReplyCache
-        self.read_cache = ReadReplyCache(
-            max(0, env_int("CONSTDB_TORCH_READ_CACHE_MB", 16)) << 20)
+        # exactly its shard.  The reference's default size until the
+        # serve planner that fills it is ported.
+        from .read_cache import READ_CACHE_MB, ReadReplyCache
+        self.read_cache = ReadReplyCache(READ_CACHE_MB << 20)
         # bumped by reset_for_full_resync; replica links stamp it at
         # connection install and refuse stale-epoch REPLACK beacons (a
         # beacon from a pre-wipe stream would re-advance a zeroed pull

@@ -39,7 +39,7 @@ Two mechanisms keep a cached reply exact, and both must hold
 GC and element-table compaction never invalidate: they preserve visible
 state by construction, and entries hold finished bytes, not row ids.
 
-Bounded: LRU over payload bytes (`CONSTDB_TORCH_READ_CACHE_MB`; 0 disables),
+Bounded: LRU over payload bytes (`READ_CACHE_MB`; 0 disables),
 a single entry never exceeds 1/8 of the cap, and the resident bytes are
 a `used_memory` source for the overload governor, whose hard-watermark
 reclaim drops the whole cache (server/overload.py — it is exactly a
@@ -57,6 +57,10 @@ _I64 = np.int64
 
 # per-entry bookkeeping overhead charged on top of the payload bytes
 # (dict slots, the stamp tuple, the by-key index entry)
+# the reference's CONSTDB_READ_CACHE_MB default; its knob comes with the
+# serve planner that fills the cache (ROADMAP item 12)
+READ_CACHE_MB = 16
+
 _ENTRY_OVERHEAD = 200
 
 

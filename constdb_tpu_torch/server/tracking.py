@@ -14,7 +14,7 @@ Two modes, mirroring Redis 6 server-assisted caching:
     has READ (note_read — fed by commands.execute and the serve
     planner's read batches) and sends a one-shot invalidation push the
     first time such a key mutates.  The per-connection key set is
-    capped (CONSTDB_TORCH_TRACKING_MAX_KEYS): past the cap the server sends a
+    capped (TRACKING_MAX_KEYS): past the cap the server sends a
     flush-all push and starts the set over — bounded memory, never
     silently stale.
   * BCAST: no per-read bookkeeping; every mutation's key is broadcast
@@ -33,8 +33,8 @@ Delivery discipline (docs/INVARIANTS.md "Tracking laws"):
 
   * invalidate-before-visible: keys are queued at the SAME hook the
     reply cache invalidates from — before the mutation lands — and
-    flush under a dual batch/latency bound (CONSTDB_TORCH_TRACKING_BATCH /
-    CONSTDB_TORCH_TRACKING_LATENCY_MS), like every other hot path.
+    flush under a dual batch/latency bound (TRACKING_BATCH /
+    TRACKING_LATENCY_MS), like every other hot path.
   * the PR 12 outbuf cap is respected: a tracked connection whose
     write buffer is over CONSTDB_CLIENT_OUTBUF_MAX when a push flush
     fires is demoted to untracked LOUDLY — warning log, the
@@ -66,6 +66,12 @@ def slot_of(key: bytes) -> int:
     return zlib.crc32(key) % NSLOTS
 
 # tracking modes (ClientConn.tracking)
+# the reference's CONSTDB_TRACKING_* defaults; their knobs come with the
+# client IO that can turn tracking on (ROADMAP item 12)
+TRACKING_BATCH = 128          # invalidation keys per push flush
+TRACKING_LATENCY_MS = 2       # max delay of a pending invalidation
+TRACKING_MAX_KEYS = 65536     # tracked keys per client before a flush-all
+
 TRACK_OFF = 0
 TRACK_DEFAULT = 1
 TRACK_BCAST = 2
@@ -132,13 +138,11 @@ class TrackingRegistry:
                  "_btimer", "loop")
 
     def __init__(self, node):
-        from ..conf import env_int
         self.node = node
         self.active = False
-        self.batch = max(1, env_int("CONSTDB_TORCH_TRACKING_BATCH", 128))
-        self.latency_s = max(
-            0, env_int("CONSTDB_TORCH_TRACKING_LATENCY_MS", 2)) / 1000.0
-        self.max_keys = max(1, env_int("CONSTDB_TORCH_TRACKING_MAX_KEYS", 65536))
+        self.batch = TRACKING_BATCH
+        self.latency_s = TRACKING_LATENCY_MS / 1000.0
+        self.max_keys = TRACKING_MAX_KEYS
         self.key_map: dict = {}    # key -> set of default-mode ClientConn
         self.bcast: set = set()    # BCAST-mode ClientConn
         self.clients: set = set()  # every tracked ClientConn

@@ -167,6 +167,11 @@ class KeySpace:
         # that actually changed (engine/cuda.py; a global version made
         # mixed traffic re-upload every table per frame)
         self.fam_ver: dict[str, int] = dict.fromkeys(FAMILIES, 0)
+        # per plane, the key-confined bumps since its last whole-plane
+        # bump: [(version after the bump, kid)].  A mirror some versions
+        # behind patches exactly those keys' rows when every bump since
+        # its build is listed here (touch_key), and rebuilds otherwise
+        self.fam_keys: dict[str, list] = {f: [] for f in FAMILIES}
 
         self.cnt = _CntCols()
         # per-rank direct (kid -> cnt row) index windows: counter slot
@@ -255,11 +260,53 @@ class KeySpace:
 
     # ------------------------------------------------------------- versions
 
+    FAM_KEYS_MAX = 4096
+
     def touch(self, *families: str) -> None:
         """Mark CRDT planes as host-modified (op path / GC)."""
         fv = self.fam_ver
         for f in families:
             fv[f] += 1
+            self.fam_keys[f].clear()
+
+    def touch_key(self, kid: int, *families: str) -> None:
+        """touch() for a write confined to the rows of key `kid` (a
+        key-scoped replication barrier): a resident mirror may patch that
+        key's rows instead of rebuilding the plane."""
+        fv = self.fam_ver
+        for f in families:
+            fv[f] += 1
+            log = self.fam_keys[f]
+            if len(log) >= self.FAM_KEYS_MAX:
+                log.clear()
+            log.append((fv[f], kid))
+
+    def keys_since(self, fam: str, ver: int) -> Optional[list]:
+        """The kids of the key-confined bumps that took plane `fam` from
+        version `ver` to its current one, or None when any bump between
+        was a whole-plane one (or fell off the log)."""
+        if ver is None:
+            return None
+        gap = self.fam_ver[fam] - ver
+        log = self.fam_keys[fam]
+        if gap <= 0 or gap > len(log) or log[-gap][0] != ver + 1 or \
+                log[-1][0] != self.fam_ver[fam]:
+            return None
+        return [kid for _, kid in log[-gap:]]
+
+    def rows_of_keys(self, fam: str, kids) -> np.ndarray:
+        """Every row of plane `fam` that belongs to one of `kids` (the
+        key table's rows for env/reg), sorted unique."""
+        if fam == "el":
+            self._sync_el_lists()
+            by_kid = self.el_rows_by_kid
+        elif fam == "cnt":
+            self._sync_cnt_lists()
+            by_kid = self.cnt_rows_by_kid
+        else:
+            return np.unique(np.asarray(kids, dtype=np.int64))
+        rows = [r for k in set(kids) for r in by_kid.get(k, ())]
+        return np.unique(np.asarray(rows, dtype=np.int64))
 
     @property
     def version(self) -> int:

@@ -11,6 +11,7 @@ rows are resident on the device, the scoped-barrier skip, the watermark
 after land, duplicates and gaps, the latency bound on a fake clock and a
 malformed frame raising the same op error."""
 
+import numpy as np
 import pytest
 
 from constdb_tpu.errors import WrongArity as RefWrongArity
@@ -103,15 +104,18 @@ def test_mixed_stream_equals_reference(reference_states, kind):
         assert eng.dev_rounds_resident > 0 and not eng.host_micro_rounds
 
 
-def test_barrier_on_a_resident_key(monkeypatch):
+def _barrier_on_a_resident_key(monkeypatch, warmup):
     """A key's set rows resident on the device, a `delset` barrier on
     that key from link A (it flushes, then writes the members' del_t on
     the host between rounds), then a second link's `srem` of one of those
     members with an older uuid, landed as its own round, and more `sadd`s:
-    the state equals the per-frame path's and the reference's, and the
-    rounds after the barriers rebuilt the element mirror from the host
-    (the flush's max with the host's del_t would hide a stale mirror's
-    pre-delete del_t in the state, so the rebuilds are counted)."""
+    the state equals the per-frame path's and the reference's.  The
+    barrier's writes are confined to its key, so the rounds after it
+    patch that key's rows into the element mirror instead of rebuilding
+    it, and the element rows stay on the device past the warm-up.  The
+    flush's max with the host's del_t would hide a stale mirror's
+    pre-delete del_t in the state, so the mirror itself is held to the
+    host columns."""
     rounds = []
     real = KN.scatter_round
     monkeypatch.setattr(KN, "scatter_round",
@@ -146,18 +150,81 @@ def test_barrier_on_a_resident_key(monkeypatch):
             ap.flush()
         return node
 
-    node = Node(node_id=1, engine=engine("torch"))
-    eng = node.engine
+    eng = TorchMergeEngine(device="cpu", resident=True, steady=True,
+                           warmup=warmup)
+    node = Node(node_id=1, engine=eng)
     run(node, 100, CoalescingApplier, ReplicaMeta, frame)
-    assert eng.dev_rounds_resident >= 6
+    assert eng.dev_rounds_resident >= 6 - eng.warmup
     assert len(rounds) == eng.dev_rounds_resident
-    assert eng.mirror_rebuilds["el"] >= 3
+    # every delset after the mirror's first build patches it: all three
+    # at warm-up 0, the last two at 2 (the first lands on the host twin)
+    assert eng.mirror_patches["el"] == (3 if eng.warmup == 0 else 2)
+    assert not eng.mirror_rebuilds["el"]
+    assert eng.micro_rounds["el"][0] == eng.warmup
+    node.ensure_flushed()
+    res, el = eng._res["el"], node.ks.el
+    for c in ("add_t", "add_node", "del_t"):
+        assert np.array_equal(res["cols"][c][:el.n].numpy(), el.col(c)[:el.n])
     per = run(Node(node_id=2, engine=CpuMergeEngine()), 1,
               CoalescingApplier, ReplicaMeta, frame)
     ref = run(RefNode(node_id=2), 1, RefApplier, RefMeta, ref_frame)
     assert node.canonical() == per.canonical() == ref.canonical()
     last_del = max(e[3] for e in events if e[1] == b"delset")
     assert int(node.ks.keys.dt[node.ks.lookup(b"s1")]) == last_del
+
+
+def test_barrier_on_a_resident_key(monkeypatch):
+    _barrier_on_a_resident_key(monkeypatch, warmup=0)
+
+
+def test_barrier_on_a_resident_key_at_default_warmup(monkeypatch):
+    """The same at the card's warm-up (CONSTDB_TORCH_RESIDENT_WARMUP's
+    default): only the first rounds merge elements on the host."""
+    monkeypatch.delenv("CONSTDB_TORCH_RESIDENT_WARMUP", raising=False)
+    _barrier_on_a_resident_key(monkeypatch, warmup=None)
+
+
+def test_mirror_patch_after_key_confined_writes():
+    """Every plane's mirror patches exactly the rows of the keys that
+    key-confined writes touched (KeySpace.touch_key) and equals its host
+    columns after; a whole-plane bump in between forces a rebuild."""
+    from constdb_tpu_torch.engine.cuda import _FAMILIES, _host_table
+
+    node = Node(node_id=1, engine=engine("torch"))
+    ks, eng = node.ks, node.engine
+    for k in range(3):
+        for cmd in ((b"set", b"r%d" % k, b"v"), (b"incr", b"c%d" % k),
+                    (b"sadd", b"s%d" % k, b"m1", b"m2")):
+            node.execute(PM.Arr([PM.Bulk(x) for x in cmd]))
+
+    def mirror_equals_host():
+        for fam, spec in _FAMILIES.items():
+            table = _host_table(ks, fam)
+            cols, _ = eng._resident_state(ks, fam, table.n)
+            for i, (c, _) in enumerate(spec):
+                dev = cols["stack"][:, i] if fam == "env" else cols[c]
+                assert np.array_equal(dev[:table.n].numpy(),
+                                      table.col(c)[:table.n]), (fam, c)
+
+    mirror_equals_host()
+    s1, r1, c1 = (ks.lookup(k) for k in (b"s1", b"r1", b"c1"))
+    ks.elem_rem(s1, b"m1", u(50))
+    ks.elem_rem(s1, b"m9", u(51))          # a new tombstone row
+    ks.keys.dt[s1] = u(51)
+    ks.touch_key(s1, "env", "el")
+    ks.keys.rv_t[r1] = u(52)
+    ks.touch_key(r1, "reg")
+    ks.counter_change(c1, 1, 5, u(53))
+    ks.touch_key(c1, "cnt")
+    mirror_equals_host()
+    assert eng.mirror_patches == {"env": 1, "reg": 1, "cnt": 1, "el": 1,
+                                  "tns": 0}
+    assert not any(eng.mirror_rebuilds.values())
+    ks.elem_rem(s1, b"m2", u(54))
+    ks.touch_key(s1, "el")
+    ks.touch("el")
+    mirror_equals_host()
+    assert eng.mirror_rebuilds["el"] == 1 and eng.mirror_patches["el"] == 1
 
 
 @pytest.mark.parametrize("kind", ENGINES)

@@ -131,19 +131,48 @@ def test_node_raises_without_a_card(monkeypatch):
     assert Node(device="cpu").engine.device.type == "cpu"
 
 
+def _port_copy_lines(text: str) -> tuple[list, int]:
+    """A port copy's lines without its header note (the paragraph that
+    starts "The port's own copy") and without its marked "port change"
+    blocks, and the number of those blocks."""
+    out, blocks, skip = [], 0, False
+    for ln in text.splitlines():
+        if "port's own copy" in ln:
+            skip = True
+        elif ln.strip() == "// port change: uint64 integers":
+            skip, blocks = True, blocks + 1
+        elif ln.strip() == "// end of port change" or \
+                (skip and ln == "//"):
+            skip = False
+        elif not skip and ln != "//":
+            out.append(ln)
+    return out, blocks
+
+
 def test_native_copies_and_their_entry_points():
     """The scanners are the port's own copies of the reference's sources,
-    included by its pyext.cpp and exported by its one extension."""
+    included by its pyext.cpp and exported by its one extension.  The one
+    change: resp.cpp's `:` integer branch parses a 64-bit magnitude (an
+    HLC uuid has 19 digits, past int_line's 18), in two marked blocks
+    that replace the reference branch's scan-and-build lines."""
     from constdb_tpu_torch.utils import native
 
     text = (native.SRC / "pyext.cpp").read_text()
     for name in ("resp", "intake", "wire"):
         assert f'#include "{name}.cpp"' in text
-        ref = (ROOT / "native" / f"{name}.cpp").read_text().splitlines()
-        port = (native.SRC / f"{name}.cpp").read_text().splitlines()
-        # the port's copy: the reference's lines after its own header note
-        assert [ln for ln in port if "port's own copy" not in ln
-                and ln != "//"] == [ln for ln in ref if ln != "//"]
+        ref = [ln for ln in (ROOT / "native" / f"{name}.cpp").read_text()
+               .splitlines() if ln != "//"]
+        port, blocks = _port_copy_lines(
+            (native.SRC / f"{name}.cpp").read_text())
+        if name == "resp":
+            i = ref.index("    if (t == ':') {")
+            j = ref.index("        if (!obj) return -2;", i)
+            assert j - i == 6
+            ref = ref[:i + 1] + ref[j:]
+            assert blocks == 2
+        else:
+            assert blocks == 0
+        assert port == ref
     assert "aof.cpp" not in text
     ext = native.load().ext
     for fn in ("resp_parse", "resp_encode", "intake_scan",

@@ -24,7 +24,8 @@ from torch_ref_native import build_reference_ext
 
 INT_EDGES = (0, 1, -1, 7, 1023, 1024, -1024, (1 << 31) - 1, -(1 << 31),
              (1 << 62), (1 << 63) - 1, -(1 << 63), 1 << 63, -(1 << 63) - 1,
-             1 << 70)
+             10 ** 18, 10 ** 19 - 1, 10 ** 19, (1 << 64) - 1, 1 << 64,
+             -(1 << 64), 1 << 70)
 
 
 @pytest.fixture(scope="module")
@@ -130,6 +131,62 @@ def test_random_splits_parse_equal(ref_native, seed):
     p = PC.make_parser()
     p.feed(wire)
     assert norm(p.drain()) == want
+
+
+# (wire line, parsed in C): a `:` integer of up to 20 digits whose
+# magnitude fits 64 bits (INT64_MIN at most, when negative) parses in the
+# port's C scanner; past that it defers to the pure parser
+UINT_LINES = (
+    (b"1700000000000000000", True),       # a 19-digit HLC uuid
+    (b"9223372036854775808", True),       # 2^63
+    (b"18446744073709551615", True),      # 2^64 - 1
+    (b"+18446744073709551615", True),
+    (b"00000000000000000001", True),      # 20 digits, leading zeros
+    (b"-9223372036854775808", True),      # INT64_MIN
+    (b"-0", True),
+    (b"18446744073709551616", False),     # 2^64
+    (b"99999999999999999999", False),
+    (b"000000000000000000001", False),    # 21 digits
+    (b"-9223372036854775809", False),     # below INT64_MIN
+)
+
+
+@pytest.mark.parametrize("line,in_c", UINT_LINES,
+                         ids=[x[0].decode() for x in UINT_LINES])
+def test_uint64_integers_parse_in_c(ref_native, line, in_c):
+    """The port's scanner takes a 64-bit `:` integer itself (a REPLICATE
+    frame's uuid) and defers only past 64 bits; every parser, the
+    reference's included, gives the same message."""
+    frame = (b"*4\r\n$9\r\nreplicate\r\n:7\r\n:" + line +
+             b"\r\n$3\r\nset\r\n")
+    for wire in (b":" + line + b"\r\n", frame):
+        msgs, pos, fallback = PC._ext().resp_parse(
+            bytearray(wire), 0, PM.Arr, PM.Bulk, PM.Int, PM.Simple,
+            PM.Err, PM.NIL, 1024, 512 << 20)
+        assert (len(msgs), pos, bool(fallback)) == \
+            ((1, len(wire), False) if in_c else (0, 0, True))
+        want = []
+        for cls in (RC.RespParser, RC.NativeRespParser):
+            p = cls()
+            p.feed(wire)
+            want.append(norm(p.next_msg()))
+        for cls in (PC.RespParser, PC.make_parser):
+            p = cls()
+            p.feed(wire)
+            want.append(norm(p.next_msg()))
+        if in_c:
+            want.append(norm(msgs[0]))
+        assert all(w == want[0] for w in want)
+        assert int(line) in _ints(want[0])
+
+
+def _ints(m) -> list:
+    """Every integer in a normalized message."""
+    if isinstance(m, tuple) and m and m[0] == "Int":
+        return [m[1]]
+    if isinstance(m, (tuple, list)):
+        return [v for x in m for v in _ints(x)]
+    return []
 
 
 def rand_command(rng: random.Random, M):
