@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--keys N] [--replicas R] [--seed S]
                           [--frames F] [--stream-keys K] [--serve-ops O]
-                          [--phases all|server|cluster]
+                          [--phases all|server|cluster|chaos]
+                          [--chaos-journal PATH]
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device    torch.cuda.is_available() (else exit 2), the card's name and
@@ -248,8 +249,34 @@ Phases, one line each; any failure raises and exits non-zero:
                cached key, its own write drops the key locally, the
                slots_lost push invalidates the key of a moved slot alone
                (flush-all never), a reconnect flushes the cache.
-`--phases server` runs phases 11-13 alone on phase 5's replica 0, and
-`--phases cluster` phase 14 alone (no kernels line, no result line).
+ 15. chaos     the port's chaos certification harness
+               (constdb_tpu_torch/chaos) in this process: the 8 card
+               cells of matrix_cells() (engines "torch" and
+               "torch-resident", wire on and off, delta on and off),
+               each certify_scenario(7, cell, ops=30) with device cuda:
+               three nodes in one event loop under the seeded fault
+               plane (partitions, delay, reorder, duplication, a
+               mid-frame cut, connection kills, a corrupt REPLBATCH,
+               cold and warm restarts, clock jumps, a CPU-engine
+               mixed-version peer), certified by the harness's oracle
+               (canonicals equal to the CPU-engine replay of the
+               journal after GC drains, digest matrices, watermark
+               monotonicity, no resurrection, fault accounting).
+               Checks, through wrappers of NodeSpec.build_engine, the
+               scenario's OpJournal and certify_state: every fast-path
+               engine a cell built (restarts included) a
+               TorchMergeEngine on cuda, node 2's the CPU engine; in a
+               torch-resident cell K3 = the card engines' device
+               rounds > 0; in every cell some kernel launched; logged a
+               line a cell (seconds, journal ops, reconnects, the
+               plane's counters, launches, peak device memory, the
+               certified canonical's hash).  --chaos-journal writes the
+               first torch-resident cell's journal for
+               scripts/chaos_ref_replay.py (the reference's oracle
+               replays it on the CPU, off the card).
+`--phases server` runs phases 11-13 alone on phase 5's replica 0,
+`--phases cluster` phase 14 alone and `--phases chaos` phase 15 alone
+(no kernels line, no result line).
 Every catch-up logs the tier of its store's staging tables and fails
 unless all are native, and counts the read-only columns the engine
 copies before pinning.  Then one JSON line of kernel records (launches
@@ -259,10 +286,9 @@ by path, phase 8's as "catchup_files", phase 9's as "sharded_process"
 traffic, c's ops into A), "restore" (the three boots from a dump),
 "sync" (B since its boot), phase 12's as "aof" (a and b's servers, c's
 card recoveries), phase 13's as "shards" (the servers' parents and
-workers) and phase 14's as "cluster" (every group server)), the run's
-total
-seconds, the nvidia-smi line, and the last line {"ok": true, "device":
-{...}}.
+workers), phase 14's as "cluster" (every group server) and phase 15's
+as "chaos" (the 8 cells)), the run's total seconds, the nvidia-smi
+line, and the last line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the port only.
 """
@@ -4312,6 +4338,153 @@ def cluster_phase(dev, boot_path: str, work: str) -> dict:
     return {"a": ra, "b": b, "secs": secs, "launches": launches}
 
 
+CHAOS_SEED = 7              # python -m constdb_tpu_torch.chaos's defaults
+CHAOS_OPS = 30
+
+
+def journal_lines(cell: str, journal, canon: dict) -> list:
+    """A certified cell's journal as JSON lines: a header naming the cell,
+    the certified canonical's hash and key count, then one line an op
+    (origin, uuid, name, args as one RESP array), for an off-card replay
+    through the reference's OpJournal."""
+    from constdb_tpu_torch.resp.codec import encode_msg
+    from constdb_tpu_torch.resp.message import Arr
+    out = [json.dumps({"cell": cell, "canon_hash": canon_hash(canon),
+                       "canonical_keys": len(canon),
+                       "ops": len(journal.ops)})]
+    for (origin, uuid), (name, args) in sorted(journal.ops.items()):
+        out.append(json.dumps({"origin": origin, "uuid": uuid,
+                               "name": name.hex(),
+                               "args": encode_msg(Arr(args)).hex()}))
+    return out
+
+
+def chaos_phase(dev, journal_path: str = "") -> dict:
+    """Phase 15: the port's 8 card cells of the chaos harness's matrix
+    (constdb_tpu_torch/chaos), each certify_scenario(7, cell, ops=30) on
+    `dev` and certified by the harness's own oracle.  The harness runs
+    unchanged; this phase wraps NodeSpec.build_engine (every engine a
+    cell builds, restarts included), the scenario's OpJournal and its
+    certify_state (the journal and the certified canonical).  Writes the
+    first torch-resident cell's journal to `journal_path` when given.
+    -> per-cell results and the launches summed over the cells."""
+    import torch
+    from constdb_tpu_torch.chaos import (NodeSpec, certify_scenario,
+                                         matrix_cells, run_scenario)
+    from constdb_tpu_torch.chaos import oracle as CO
+    from constdb_tpu_torch.chaos import scenario as CS
+    from constdb_tpu_torch.engine.cpu import CpuMergeEngine
+    from constdb_tpu_torch.engine.cuda import TorchMergeEngine
+    from constdb_tpu_torch.ops import kernels as KN
+
+    cuda = dev.type == "cuda"
+    cells = [c for c in matrix_cells(dev.type) if c.engine != "cpu"]
+    if len(cells) != 8:
+        raise AssertionError(f"chaos: {len(cells)} card cells, want 8")
+    built: list = []
+    journals: list = []
+    canons: list = []
+    build = NodeSpec.build_engine
+
+    def build_engine(spec):
+        eng = build(spec)
+        built.append((spec.engine, eng))
+        return eng
+
+    class Journal(CO.OpJournal):
+        def __init__(self):
+            super().__init__()
+            journals.append(self)
+
+    async def certify(cluster, journal, timeout=30.0):
+        canon = await CO.certify_state(cluster, journal, timeout)
+        canons.append(canon)
+        return canon
+
+    saved = (NodeSpec.build_engine, CS.OpJournal, CS.certify_state)
+    NodeSpec.build_engine = build_engine
+    CS.OpJournal, CS.certify_state = Journal, certify
+    results: list = []
+    launches = {k: 0 for k in KN.LAUNCHES}
+    t_phase = time.perf_counter()
+    try:
+        for cell in cells:
+            built.clear()
+            journals.clear()
+            canons.clear()
+            gc.collect()
+            if cuda:
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            mem0 = torch.cuda.memory_allocated(dev) if cuda else 0
+            KN.reset_launches()
+            t0 = time.perf_counter()
+            stats = run_scenario(certify_scenario(CHAOS_SEED, cell,
+                                                  ops=CHAOS_OPS))
+            secs = time.perf_counter() - t0
+            got = dict(KN.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            card = [e for kind, e in built if kind != "cpu"]
+            cpu = [e for kind, e in built if kind == "cpu"]
+            bad = [(kind, type(e).__name__, str(getattr(e, "device", "")))
+                   for kind, e in built
+                   if (kind == "cpu" and type(e) is not CpuMergeEngine) or
+                   (kind != "cpu" and (type(e) is not TorchMergeEngine or
+                                       e.device.type != dev.type))]
+            if bad or len(card) != 3 or len(cpu) != 1:
+                raise AssertionError(
+                    f"chaos {cell.name}: engines {bad or built}; want 3 "
+                    f"TorchMergeEngines on {dev.type} (nodes 0, 1 and node "
+                    f"1's cold restart) and the CPU engine of node 2")
+            rounds = sum(e.dev_rounds_resident for e in card)
+            if cuda and cell.engine == "torch-resident" and not (
+                    got["scatter_pair_src"] == rounds > 0):
+                raise AssertionError(
+                    f"chaos {cell.name}: K3 launched "
+                    f"{got['scatter_pair_src']} times, the card engines "
+                    f"ran {rounds} device rounds (want equal, > 0)")
+            if cuda and not sum(got.values()):
+                raise AssertionError(f"chaos {cell.name}: no kernel "
+                                     f"launched")
+            if len(journals) != 1 or len(canons) != 1:
+                raise AssertionError(f"chaos {cell.name}: no certified "
+                                     f"canonical")
+            canon = canons[0]
+            gc.collect()
+            mem1 = torch.cuda.memory_allocated(dev) if cuda else 0
+            res = {"cell": cell.name, "secs": round(secs, 3),
+                   "journal_ops": stats["journal_ops"],
+                   "reconnects": stats["reconnects"],
+                   "wire_demotions": stats["wire_demotions"],
+                   "plane": stats["plane"], "launches": got,
+                   "dev_rounds": rounds,
+                   "peak_mem_bytes": peak - mem0,
+                   "mem_after_bytes": mem1 - mem0,
+                   "canonical_keys": len(canon),
+                   "canon_hash": canon_hash(canon)}
+            log(f"chaos: {json.dumps(res)}")
+            results.append(res)
+            for k, v in got.items():
+                launches[k] += v
+            if journal_path and cell.engine == "torch-resident" and \
+                    not any(r.get("journal") for r in results):
+                with open(journal_path, "w") as f:
+                    f.write("\n".join(journal_lines(
+                        cell.name, journals[0], canon)) + "\n")
+                res["journal"] = journal_path
+                log(f"chaos: {cell.name}'s journal ({len(journals[0].ops)}"
+                    f" ops) written to {journal_path}")
+    finally:
+        NodeSpec.build_engine = saved[0]
+        CS.OpJournal, CS.certify_state = saved[1], saved[2]
+        built.clear()
+    secs = time.perf_counter() - t_phase
+    log(f"chaos: phase {secs:.1f} s, {len(results)}/8 card cells "
+        f"certified; kernels {launches}")
+    return {"cells": results, "secs": secs, "launches": launches}
+
+
 def server_phases(dev, boot_path: str, work: str, n_ops: int,
                   n_keys: int) -> tuple:
     """Phases 11-13 on one boot file.  -> their results."""
@@ -4330,11 +4503,15 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=200_000)
     ap.add_argument("--stream-keys", type=int, default=20_000)
     ap.add_argument("--serve-ops", type=int, default=200_000)
-    ap.add_argument("--phases", choices=["all", "server", "cluster"],
+    ap.add_argument("--phases", choices=["all", "server", "cluster",
+                                         "chaos"],
                     default="all",
                     help="server: phases 11-13 only, cluster: phase 14 "
-                         "only (rehearsals; no kernels line, no result "
-                         "line)")
+                         "only, chaos: phase 15 only (rehearsals; no "
+                         "kernels line, no result line)")
+    ap.add_argument("--chaos-journal", default="",
+                    help="write phase 15's first torch-resident cell's "
+                         "journal and certified canonical hash here")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -4361,6 +4538,11 @@ def main() -> int:
 
     from constdb_tpu_torch import workload as W
     rep = args.replicas
+    if args.phases == "chaos":
+        chaos_phase(dev, args.chaos_journal)
+        log(f"total: {time.perf_counter() - t_start:.1f} s (phase 15)")
+        print(smi, flush=True)
+        return 0
     if args.phases != "all":
         server_dir = tempfile.mkdtemp(prefix="constdb_chip_smoke_server_")
         try:
@@ -4463,6 +4645,8 @@ def main() -> int:
         cluster = cluster_phase(dev, boot_path, server_dir)
     finally:
         shutil.rmtree(server_dir, ignore_errors=True)
+    elapsed("phase 14")
+    chaos = chaos_phase(dev, args.chaos_journal)
 
     replaces = {
         "merge_elems": "constdb_tpu/ops/pallas_dense.py:105",
@@ -4492,7 +4676,8 @@ def main() -> int:
                    "sync": server["launches"]["sync"][name],
                    "aof": aof["launches"].get(name, 0),
                    "shards": shards["launches"].get(name, 0),
-                   "cluster": cluster["launches"].get(name, 0)}
+                   "cluster": cluster["launches"].get(name, 0),
+                   "chaos": chaos["launches"].get(name, 0)}
         rec = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": sum(by_path.values()),

@@ -114,9 +114,9 @@ class ServerApp:
             if reconnect_factor is None else reconnect_factor
         self.reconnect_jitter = _envf("CONSTDB_TORCH_RECONNECT_JITTER", 0.2) \
             if reconnect_jitter is None else reconnect_jitter
-        # the seam a fault-injecting harness (the reference's chaos/,
-        # ROADMAP item 13) installs to route EVERY inter-node transport
-        # through its fault plane: an
+        # the seam a fault-injecting harness (constdb_tpu_torch/chaos/,
+        # plane.FaultPlane.connector) installs to route EVERY inter-node
+        # transport through its fault plane: an
         # async callable (host, port) -> (reader, writer).  None = a
         # plain TCP connection.  Replica links are always the DIALING
         # side of their connection (an inbound SYNC adopts a stream some

@@ -46,7 +46,7 @@ class ReplLog:
         self.last_uuid = 0      # newest uuid ever pushed (survives eviction)
         # observer: called with (uuid, name, args) as each entry lands —
         # the chaos oracle's op journal taps the origin stream here
-        # (constdb_tpu/chaos/oracle.py); the ring's eviction makes the
+        # (constdb_tpu_torch/chaos/oracle.py); the ring's eviction makes the
         # log itself useless as a post-hoc record.  None = no observer.
         self.on_append = None
         # emission floor: None, or a callable returning the smallest

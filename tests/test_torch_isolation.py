@@ -58,7 +58,10 @@ def test_importing_the_port_loads_no_jax():
     assert "constdb_tpu_torch.engine.cuda" in res["modules"]
     assert "constdb_tpu_torch.ops.kernels" in res["modules"]
     for name in ("cluster.slots", "cluster.migrate", "cluster.commands",
-                 "client.near_cache"):
+                 "client.near_cache", "chaos", "chaos.plane",
+                 "chaos.cluster", "chaos.oracle", "chaos.scenario",
+                 "chaos.resource", "chaos.cluster_cells",
+                 "chaos.tracking_cells", "chaos.__main__"):
         assert f"constdb_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
