@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--keys N] [--replicas R] [--seed S]
                           [--frames F] [--stream-keys K] [--serve-ops O]
-                          [--phases all|server|cluster|chaos]
+                          [--phases all|server|cluster|chaos|multi]
                           [--chaos-journal PATH]
 
 Phases, one line each; any failure raises and exits non-zero:
@@ -274,9 +274,30 @@ Phases, one line each; any failure raises and exits non-zero:
                first torch-resident cell's journal for
                scripts/chaos_ref_replay.py (the reference's oracle
                replays it on the CPU, off the card).
+ 16. multi     the multi-device merge on the one card: (a) the port's
+               invariant lint, `python -m constdb_tpu_torch.analysis
+               --baseline --json` over the checkout: exit 0, zero
+               findings, its seconds; (b) phase 5's catch-up (its
+               batches made again from its seed, groups of R,
+               dense_fold="cuda") through TorchMergeEngine(resident=True,
+               devices=[cuda:0] x 4), the kv range-partitioned engine:
+               full_state_digest equal to phase 5's, the ~100k-key
+               oracle subsample equal (phase 9's), every partition's
+               columns on its device holding exactly its range of the
+               plane (checked against the flushed host columns, pad rows
+               neutral; sizes logged), K1, K2 and K4 launched in every
+               partition (per-partition calls summing to the kernels'
+               launch counts), the re-splits, keys/s beside phase 5's,
+               peak device memory; (c) the rep x kv step
+               (parallel/sharded.py) over NCCL with world size 1 at
+               R = 8, S = 2^20 (env [R, S, 4]) bit-equal to the plain
+               dense ops on the card, its all-reduce count, the process
+               group destroyed; then entry.dryrun_multichip(1).  Logged:
+               the phase's seconds (target 60).
 `--phases server` runs phases 11-13 alone on phase 5's replica 0,
-`--phases cluster` phase 14 alone and `--phases chaos` phase 15 alone
-(no kernels line, no result line).
+`--phases cluster` phase 14 alone, `--phases chaos` phase 15 alone and
+`--phases multi` phase 5 then phase 16 (no kernels line, no result
+line).
 Every catch-up logs the tier of its store's staging tables and fails
 unless all are native, and counts the read-only columns the engine
 copies before pinning.  Then one JSON line of kernel records (launches
@@ -287,7 +308,8 @@ traffic, c's ops into A), "restore" (the three boots from a dump),
 "sync" (B since its boot), phase 12's as "aof" (a and b's servers, c's
 card recoveries), phase 13's as "shards" (the servers' parents and
 workers), phase 14's as "cluster" (every group server) and phase 15's
-as "chaos" (the 8 cells)), the run's total seconds, the nvidia-smi
+as "chaos" (the 8 cells) and phase 16's as "multi"), the run's total
+seconds, the nvidia-smi
 line, and the last line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the port only.
@@ -1426,12 +1448,12 @@ def catchup(dev, n_keys: int, n_rep: int, seed: int, group: int,
     ro = {"copies": 0, "bytes": 0}
     real_h2d = eng._h2d
 
-    def h2d_counted(arr):
+    def h2d_counted(arr, *args, **kw):
         if isinstance(arr, np.ndarray) and arr.flags.c_contiguous and \
                 not arr.flags.writeable:
             ro["copies"] += 1
             ro["bytes"] += arr.nbytes
-        return real_h2d(arr)
+        return real_h2d(arr, *args, **kw)
 
     eng._h2d = h2d_counted
     real_flush = eng.flush
@@ -4495,6 +4517,236 @@ def server_phases(dev, boot_path: str, work: str, n_ops: int,
     return server, aof, shards
 
 
+# ------------------------------------------------------------- phase 16
+
+MULTI_PARTS = 4              # range partitions of the one card (16b)
+MULTI_R, MULTI_S = 8, 1 << 20   # the rep x kv step's [R, S] (16c)
+
+
+def lint_phase() -> dict:
+    """16a: the port's lint over this checkout, in --baseline mode: exit
+    0, zero findings, no growth."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "constdb_tpu_torch.analysis",
+                          "--baseline", "--json"], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    try:
+        payload = json.loads(out.stdout)
+    except ValueError:
+        payload = None
+    if out.returncode != 0 or payload is None or payload["findings"] or \
+            payload["baseline"]["growth"]:
+        raise AssertionError(f"lint: exit {out.returncode}, output "
+                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    log(f"multi: lint (python -m constdb_tpu_torch.analysis --baseline) "
+        f"exit 0, {len(payload['findings'])} findings, "
+        f"{len(payload['baseline']['growth'])} over the baseline, "
+        f"{secs:.2f} s")
+    return {"findings": len(payload["findings"]), "secs": secs}
+
+
+def partition_check(eng, store) -> dict:
+    """16b: every resident column of the partitioned engine is one tensor
+    per partition, on its device, of cap / K rows, holding exactly its
+    range of the flushed host column (the pad rows past the plane's
+    rows neutral).  -> {family: (cap, rows, [partition sizes])}."""
+    import numpy as np
+
+    from constdb_tpu_torch.engine import cuda as C
+    sizes = {}
+    kk = len(eng._devs)
+    for fam, res in eng._res.items():
+        cap, n = res["cap"], res["n"]
+        p = cap // kk
+        table = C._host_table(store, fam)
+        spec = C._FAMILIES[fam]
+        for name, parts in res["cols"].items():
+            if len(parts) != kk or any(
+                    x.device != d or x.shape[0] != p
+                    for x, d in zip(parts, eng._devs)):
+                raise AssertionError(
+                    f"multi: {fam}.{name} partitions "
+                    f"{[(str(x.device), x.shape[0]) for x in parts]}, want "
+                    f"{kk} of {p} rows on {[str(d) for d in eng._devs]}")
+            if fam == "env":
+                host = np.stack([table.col(c)[:n] for c, _ in spec], axis=-1)
+                fill = 0
+            else:
+                host = table.col(name)[:n]
+                fill = dict(spec)[name]
+            for k, x in enumerate(parts):
+                got = x.cpu().numpy()
+                lo, hi = k * p, min(n, (k + 1) * p)
+                m = max(0, hi - lo)
+                if not (np.array_equal(got[:m], host[lo:hi]) and
+                        (got[m:] == fill).all()):
+                    raise AssertionError(
+                        f"multi: {fam}.{name} partition {k} does not hold "
+                        f"rows [{lo}, {lo + p}) of the plane")
+        sizes[fam] = (cap, n, [min(p, max(0, n - k * p)) for k in range(kk)])
+    return sizes
+
+
+def partitioned_catchup(dev, n_keys: int, n_rep: int, seed: int,
+                        oracle: tuple, want_digest: int,
+                        phase5_kps: float) -> dict:
+    """16b: phase 5's catch-up through the kv range-partitioned engine on
+    MULTI_PARTS partitions of `dev`."""
+    import torch
+
+    from constdb_tpu_torch import workload as W
+    from constdb_tpu_torch.engine.cuda import TorchMergeEngine
+    from constdb_tpu_torch.ops import kernels as KN
+    from constdb_tpu_torch.store.keyspace import KeySpace
+    label = f"multi: partitioned catch-up ({MULTI_PARTS} partitions)"
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    chunks = W.chunk_batches(W.make_workload(n_keys, n_rep, seed=seed,
+                                             aligned_counters=True),
+                             CHUNK_KEYS)
+    t_gen = time.perf_counter() - t0
+    eng = TorchMergeEngine(resident=True, dense_fold="cuda",
+                           devices=[dev] * MULTI_PARTS)
+    store = KeySpace()
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        KN.reset_launches()
+        t0 = time.perf_counter()
+        for i in range(0, len(chunks), n_rep):
+            eng.merge_many(store, chunks[i:i + n_rep])
+        eng.flush(store)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(KN.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+        del chunks
+        sizes = partition_check(eng, store)
+        per_part = [dict(c) for c in eng.partition_launches]
+        resplits = eng.resplits
+        fam_secs = {k: round(v, 3) for k, v in eng.family_secs.items()}
+        stage_secs = {k: round(v, 3) for k, v in eng.stage_secs.items()}
+        t0 = time.perf_counter()
+        digest = full_state_digest(store)
+        sub_keys, want = oracle
+        mism = W.compare_canonical(store.canonical(keys=sub_keys), want)
+        t_ver = time.perf_counter() - t0
+    finally:
+        eng.release_device_pools(store)
+        eng.close()
+    if mism:
+        raise AssertionError(f"{label}: {mism} of {len(sub_keys)} keys "
+                             "differ from the CPU oracle")
+    if digest != want_digest:
+        raise AssertionError(f"{label}: digest {digest:#x}, phase 5's "
+                             f"store {want_digest:#x}")
+    names = ("merge_elems", "merge_counters", "segment_sum")
+    if any(c[k] < 1 for c in per_part for k in names):
+        raise AssertionError(f"{label}: per-partition kernel calls "
+                             f"{per_part}; K1, K2 and K4 must run in every "
+                             "partition")
+    if on_card and any(sum(c[k] for c in per_part) != launches[k]
+                       for k in names):
+        raise AssertionError(f"{label}: per-partition calls {per_part} do "
+                             f"not sum to the launches {launches}")
+    out = {"wall_s": wall, "keys_per_s": n_keys / wall,
+           "phase5_keys_per_s": phase5_kps, "launches": launches,
+           "per_partition": per_part, "resplits": resplits,
+           "partition_rows": sizes, "peak_mem_bytes": peak,
+           "verified_keys": len(sub_keys), "digest": digest,
+           "gen_s": t_gen, "verify_s": t_ver, "family_secs": fam_secs,
+           "stage_secs": stage_secs}
+    log(f"{label}: {n_keys} keys x {n_rep} replicas, groups of {n_rep}, "
+        f"dense_fold=cuda: {wall:.3f} s ({out['keys_per_s']:.0f} keys/s; "
+        f"phase 5, one partition, same call: {phase5_kps:.0f} keys/s), "
+        f"launches {launches}, per partition (K1 merge_elems, K2 "
+        f"merge_counters, K4 segment_sum) {per_part}, re-splits "
+        f"{resplits}, rows per partition (cap, rows, [per partition]) "
+        f"{sizes}, peak device memory {peak} bytes, family_secs "
+        f"{fam_secs}, stage_secs {stage_secs}; digest {digest:#x} "
+        f"equals phase 5's; verified {len(sub_keys)} keys, 0 mismatches "
+        f"(gen {t_gen:.1f} s, verify {t_ver:.1f} s)")
+    return out
+
+
+def collective_check(dev, seed: int) -> dict:
+    """16c: the rep x kv step over a world of one rank (NCCL on the card,
+    gloo on the CPU) at [MULTI_R, MULTI_S], bit-equal to the plain dense
+    ops; the process group is destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+
+    from constdb_tpu_torch.entry import _example_arrays, merge_step
+    from constdb_tpu_torch.ops.segment import NEUTRAL_T
+    from constdb_tpu_torch.parallel import sharded as SH
+    arrays = _example_arrays(MULTI_R, MULTI_S, seed=seed)
+    SH.init_world(0, 1, f"tcp://127.0.0.1:{SH._free_port()}", dev)
+    try:
+        backend = dist.get_backend()
+        mesh = SH.make_mesh(1, dev)
+        step = SH.sharded_merge_step(mesh)
+        blocks = SH.shard_batch_arrays(mesh, *arrays)
+        secs = []
+        for _ in range(2):   # the first call also sets up the communicator
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = step(*blocks)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        want = merge_step(*(torch.from_numpy(a).to(dev) for a in arrays))
+        for name, g, w in zip(("V", "T", "AT", "AN", "DT", "WIN", "ENV"),
+                              got[:7], want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"multi: rep x kv step {name} differs "
+                                     "from the plain dense ops")
+        touched = int((want[1] > NEUTRAL_T).sum())
+        if got[7] != touched:
+            raise AssertionError(f"multi: touched {got[7]}, plain {touched}")
+        all_reduces = step.all_reduces
+    finally:
+        dist.destroy_process_group()
+    log(f"multi: rep x kv step over {backend} (world 1, mesh 1x1) at "
+        f"[{MULTI_R}, {MULTI_S}] (env [{MULTI_R}, {MULTI_S}, 4]) bit-equal "
+        f"to the plain dense ops on the card: {all_reduces} all-reduces in "
+        f"2 steps, first step {secs[0] * 1e3:.2f} ms (with the "
+        f"communicator's setup), second {secs[1] * 1e3:.2f} ms, touched "
+        f"{touched}; process group destroyed")
+    return {"backend": backend, "all_reduces": all_reduces,
+            "first_step_ms": secs[0] * 1e3, "step_ms": secs[1] * 1e3,
+            "touched": touched}
+
+
+def multi_phase(dev, n_keys: int, n_rep: int, seed: int, oracle: tuple,
+                want_digest: int, phase5_kps: float) -> dict:
+    """Phase 16: the lint, the partitioned catch-up and the collectives
+    (module docstring)."""
+    from constdb_tpu_torch.entry import dryrun_multichip
+    from constdb_tpu_torch.ops import kernels as KN
+    t_phase = time.perf_counter()
+    lint = lint_phase()
+    catch = partitioned_catchup(dev, n_keys, n_rep, seed, oracle,
+                                want_digest, phase5_kps)
+    coll = collective_check(dev, seed)
+    t0 = time.perf_counter()
+    KN.reset_launches()
+    dry = dryrun_multichip(1, dev.type)
+    dry_launches = dict(KN.LAUNCHES)
+    log(f"multi: dryrun_multichip(1) {dry} in "
+        f"{time.perf_counter() - t0:.2f} s, launches {dry_launches}")
+    secs = time.perf_counter() - t_phase
+    log(f"multi: phase {secs:.1f} s (target 60 s)")
+    launches = {k: catch["launches"][k] + dry_launches[k]
+                for k in catch["launches"]}
+    return {"lint": lint, "catchup": catch, "collective": coll,
+            "dryrun": dry, "launches": launches, "secs": secs}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--keys", type=int, default=1_000_000)
@@ -4504,11 +4756,12 @@ def main() -> int:
     ap.add_argument("--stream-keys", type=int, default=20_000)
     ap.add_argument("--serve-ops", type=int, default=200_000)
     ap.add_argument("--phases", choices=["all", "server", "cluster",
-                                         "chaos"],
+                                         "chaos", "multi"],
                     default="all",
                     help="server: phases 11-13 only, cluster: phase 14 "
-                         "only, chaos: phase 15 only (rehearsals; no "
-                         "kernels line, no result line)")
+                         "only, chaos: phase 15 only, multi: phase 5 then "
+                         "phase 16 (rehearsals; no kernels line, no "
+                         "result line)")
     ap.add_argument("--chaos-journal", default="",
                     help="write phase 15's first torch-resident cell's "
                          "journal and certified canonical hash here")
@@ -4541,6 +4794,20 @@ def main() -> int:
     if args.phases == "chaos":
         chaos_phase(dev, args.chaos_journal)
         log(f"total: {time.perf_counter() - t_start:.1f} s (phase 15)")
+        print(smi, flush=True)
+        return 0
+    if args.phases == "multi":
+        fold, eng5, store5, batches5 = catchup(
+            dev, args.keys, rep, args.seed, rep, "cuda", True,
+            "catch-up (device fold)")
+        eng5.close()
+        digest5 = full_state_digest(store5)
+        oracle = (W.subsample_keys(batches5[0].keys, args.keys),
+                  W.oracle_canonical(batches5, args.keys))
+        del eng5, store5, batches5
+        multi_phase(dev, args.keys, rep, args.seed, oracle, digest5,
+                    fold["keys_per_s"])
+        log(f"total: {time.perf_counter() - t_start:.1f} s (phases 5, 16)")
         print(smi, flush=True)
         return 0
     if args.phases != "all":
@@ -4647,6 +4914,9 @@ def main() -> int:
         shutil.rmtree(server_dir, ignore_errors=True)
     elapsed("phase 14")
     chaos = chaos_phase(dev, args.chaos_journal)
+    elapsed("phase 15")
+    multi = multi_phase(dev, args.keys, rep, args.seed, oracle, fold_digest,
+                        fold["keys_per_s"])
 
     replaces = {
         "merge_elems": "constdb_tpu/ops/pallas_dense.py:105",
@@ -4677,7 +4947,8 @@ def main() -> int:
                    "aof": aof["launches"].get(name, 0),
                    "shards": shards["launches"].get(name, 0),
                    "cluster": cluster["launches"].get(name, 0),
-                   "chaos": chaos["launches"].get(name, 0)}
+                   "chaos": chaos["launches"].get(name, 0),
+                   "multi": multi["launches"].get(name, 0)}
         rec = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": sum(by_path.values()),

@@ -34,7 +34,23 @@ scatter_round launch; `flush()` then gathers and downloads only the
 dirty rows.  Tensor-register payloads live in resident device pools and
 batched reads (`tensor_read_many`) reduce on the card with K5
 tensor_take_reduce.  With `steady` off, micro-batches take the host
-round, as the reference does.  Mesh partitioning is not ported.
+round, as the reference does.
+
+**Range partitions** (`devices=[...]`, the reference's kv mesh,
+`TpuMergeEngine(mesh=...)`): every per-slot plane is padded to a power
+of two and then to a multiple of K = len(devices), and partition k holds
+its contiguous rows [k * Sp/K, (k+1) * Sp/K) as a tensor on devices[k]
+(a device may repeat: one card can hold several partitions).  Each bulk
+dispatch splits its batch rows by range and runs the same op or kernel
+per partition with partition-local ids: K1 fold_apply folds and applies
+registers and elements, K2 folds counters, and the counter-sum
+re-derivation runs K4 per partition and adds the partial sums mod 2^64
+(one key's counter slots may straddle a boundary).  When a plane grows
+its boundaries move and its columns re-split (`resplits`).  As on the
+reference's mesh, the bulk path always runs (no scatter strategy), and
+there is no steady micro path and no device tensor path: micro-batches
+and tensor rows merge on their host twins.  `partition_launches[k]`
+counts the kernel wrapper calls made for partition k.
 
 `dense_fold` picks the aligned-fold backend: "auto" = the CUDA kernels
 on a CUDA device and the plain PyTorch versions on the CPU, "cuda" the
@@ -50,6 +66,7 @@ reference JAX engine.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import logging
 import os
 import time
@@ -162,6 +179,35 @@ def _rows_disjoint_cat(staged):
     return None
 
 
+def _row_sorted(entry: tuple) -> tuple:
+    """A staged entry (rows first, then per-row columns, value lists and
+    flags) reordered so that its rows ascend, as a range-partitioned
+    dispatch splits them: rows are unique within an entry, so the order
+    carries no meaning."""
+    rows = np.asarray(entry[0])
+    n = len(rows)
+    if n < 2 or (rows[1:] >= rows[:-1]).all():
+        return entry
+    perm = np.argsort(rows, kind="stable")
+    out = []
+    for x in entry:
+        if isinstance(x, np.ndarray) and x.ndim and len(x) == n:
+            out.append(x[perm])
+        elif isinstance(x, list) and len(x) == n:
+            out.append(list(map(x.__getitem__, perm.tolist())))
+        else:
+            out.append(x)
+    return tuple(out)
+
+
+def _pad_cols(stack: np.ndarray, size: int, fill) -> np.ndarray:
+    """An [R, n, ...] stack padded to [R, size, ...]."""
+    out = np.full((stack.shape[0], size) + stack.shape[2:], fill,
+                  dtype=stack.dtype)
+    out[:, :stack.shape[1]] = stack
+    return out
+
+
 def _lex_fold(t_list, v_list):
     """RUNNING lexicographic (t, v) max over R same-shape arrays ->
     (t[N], v[N], win_batch[N]); ties keep the EARLIEST batch."""
@@ -208,10 +254,15 @@ class TorchMergeEngine:
                  pipeline: Optional[bool] = None,
                  steady: Optional[bool] = None,
                  warmup: Optional[int] = None,
-                 device: Union[str, torch.device, None] = None) -> None:
+                 device: Union[str, torch.device, None] = None,
+                 devices: Optional[list] = None) -> None:
         """`device`: None or "cuda" = the current CUDA device (raises when
         there is none), "cpu" = the CPU with the plain versions of every
-        kernel.  `dense_fold`: see the module docstring.  `pipeline`:
+        kernel.  `devices`: range-partition the per-slot state over this
+        device list (module docstring; parallel/sharded.py engine_mesh
+        makes one); `device` is then devices[0], which also runs what is
+        not partitioned.  None = one device, unpartitioned.  `dense_fold`:
+        see the module docstring.  `pipeline`:
         stage the families' host prep on a worker pool while the main
         thread dispatches (None = on unless CONSTDB_TORCH_PIPELINE=0);
         results are byte-identical to the serial path because every stage
@@ -228,14 +279,33 @@ class TorchMergeEngine:
         if dense_fold not in FOLD_MODES:
             raise ValueError(f"dense_fold must be one of {FOLD_MODES}, "
                              f"got {dense_fold!r}")
-        self.device = resolve_device(device)
+        if devices is not None:
+            self._devs = [resolve_device(d) for d in devices]
+            if not self._devs:
+                raise ValueError("devices must name at least one device")
+            if device is not None and \
+                    resolve_device(device) != self._devs[0]:
+                raise ValueError("device must be devices[0] when both are "
+                                 "given")
+            self.device = self._devs[0]
+        else:
+            self._devs = None
+            self.device = resolve_device(device)
         self.dense_fold = dense_fold
         self.resident = resident
         if steady is None:
             mode = env_str("CONSTDB_TORCH_RESIDENT", "auto")
             steady = self.device.type == "cuda" if mode == "auto" \
                 else mode != "0"
-        self.steady = bool(steady)
+        # range partitions merge micro-batches and tensor rows on the host
+        self.steady = bool(steady) and self._devs is None
+        # partition boundary moves (a partitioned plane grew and its
+        # columns re-split) and, per partition, the kernel wrapper calls
+        # made for it (K1 merge_elems, K2 merge_counters, K4 segment_sum)
+        self.resplits = 0
+        self.partition_launches = [
+            {"merge_elems": 0, "merge_counters": 0, "segment_sum": 0}
+            for _ in (self._devs or ())]
         self.warmup = env_int("CONSTDB_TORCH_RESIDENT_WARMUP", 2) \
             if warmup is None else int(warmup)
         self._warm_streak: dict[str, tuple[int, int]] = {}
@@ -312,26 +382,29 @@ class TorchMergeEngine:
 
     # ------------------------------------------------------------ transfers
 
-    def _h2d(self, arr: np.ndarray) -> torch.Tensor:
-        """One host array to the device.  CUDA: through a pinned buffer
-        with a non_blocking copy.  CPU: a private copy (state tensors are
-        updated in place and must not alias the host columns)."""
+    def _h2d(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        """One host array to the device (`device`, default the engine's).
+        CUDA: through a pinned buffer with a non_blocking copy.  CPU: a
+        private copy (state tensors are updated in place and must not
+        alias the host columns)."""
+        dev = self.device if device is None else device
         arr = np.ascontiguousarray(arr)
         self.bytes_h2d += arr.nbytes
         self.h2d_copies += 1
-        if self.device.type == "cpu":
+        if dev.type == "cpu":
             return torch.from_numpy(arr.copy())
         if not arr.flags.writeable:
             arr = arr.copy()
-        return torch.from_numpy(arr).pin_memory().to(self.device,
-                                                     non_blocking=True)
+        return torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
 
-    def _h2d_packed(self, i64: list, i32: list, slot: Optional[dict] = None):
+    def _h2d_packed(self, i64: list, i32: list, slot: Optional[dict] = None,
+                    device=None):
         """Several int64 and int32 host columns to the device in ONE copy:
         packed int64 first (alignment), then int32, into a pinned slot
         (`slot`, else the next of the staging ring), one non_blocking
-        copy, an event behind it.  An int64 entry may be a _Stack, whose
-        rows pack back to back into one [R, n] view.
+        copy to `device` (default the engine's), an event behind it.  An
+        int64 entry may be a _Stack, whose rows pack back to back into one
+        [R, n] view.
         -> (int64 device views, int32 device views), in order, each of
         its host array's shape."""
         cols = []   # (host parts, view shape, torch dtype)
@@ -349,7 +422,8 @@ class TorchMergeEngine:
         nbytes = sum(p.nbytes for parts, _, _ in cols for p in parts)
         self.bytes_h2d += nbytes
         self.h2d_copies += 1
-        cuda = self.device.type == "cuda"
+        dev_t = self.device if device is None else device
+        cuda = dev_t.type == "cuda"
         if cuda:
             if slot is None:
                 slot = self._ring[self._ring_i]
@@ -372,7 +446,7 @@ class TorchMergeEngine:
             offs.append(off)
         dev = host_t
         if cuda:
-            dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            dev = torch.empty(nbytes, dtype=torch.uint8, device=dev_t)
             dev.copy_(host_t, non_blocking=True)
             slot["ev"] = torch.cuda.Event()
             slot["ev"].record()
@@ -399,27 +473,117 @@ class TorchMergeEngine:
         """One download into pinned host memory, waited on through an
         event recorded behind it (no pageable copy)."""
         h = self._start_get(t)
-        if self.device.type == "cuda":
+        if t.device.type == "cuda":
             ev = torch.cuda.Event()
-            ev.record()
+            ev.record(torch.cuda.current_stream(t.device))
             ev.synchronize()
         self.bytes_d2h += h.numel() * h.element_size()
         return h.numpy()
 
-    def _full(self, n: int, fill: int, cols: int = 0) -> torch.Tensor:
-        """Neutral state made on the device (cols=0 -> [n]; cols=C -> [n, C])."""
+    def _full(self, n: int, fill: int, cols: int = 0, device=None,
+              i32: bool = False) -> torch.Tensor:
+        """Neutral state made on the device (cols=0 -> [n]; cols=C -> [n, C];
+        i32: an int32 src plane)."""
+        dev = self.device if device is None else device
         if cols:
-            return torch.zeros((n, cols), dtype=torch.int64,
-                               device=self.device)
-        return B.device_full(n, fill, device=self.device)
+            return torch.zeros((n, cols), dtype=torch.int64, device=dev)
+        return B.device_full(n, fill, i32=i32, device=dev)
 
     def _grow(self, old: torch.Tensor, delta: int, fill: int,
-              cols: int = 0) -> torch.Tensor:
-        return torch.cat([old, self._full(delta, fill, cols)])
+              cols: int = 0, i32: bool = False) -> torch.Tensor:
+        return torch.cat([old, self._full(delta, fill, cols, i32=i32)])
 
-    @staticmethod
-    def _sp_size(size: int) -> int:
-        return K.next_pow2(max(size, 1))
+    def _sp_size(self, size: int) -> int:
+        """Padded plane size: pow2, then, with range partitions, rounded
+        up to a multiple of their count."""
+        sp = K.next_pow2(max(size, 1))
+        if self._devs is not None and sp % len(self._devs):
+            sp = -(-sp // len(self._devs)) * len(self._devs)
+        return sp
+
+    # ----------------------------------------------------- range partitions
+    # A partitioned plane is a list of K tensors, partition k holding the
+    # plane's rows [k * P, (k+1) * P), P = cap / K, on self._devs[k].
+
+    def _on(self, k: int):
+        """Make partition k's card the current CUDA device (its kernels
+        launch on that card's stream)."""
+        dev = self._devs[k]
+        return torch.cuda.device(dev) if dev.type == "cuda" \
+            else contextlib.nullcontext()
+
+    def _each_part(self, rows: np.ndarray, base: int, sp: int):
+        """Split sorted batch rows (plane rows, relative to `base`, of a
+        plane of `sp` rows) by partition: yields (k, batch slice,
+        partition base, partition size, device) for every partition that
+        holds some of them, with partition k's card current."""
+        rows = np.asarray(rows)
+        if len(rows) > 1 and not (rows[1:] >= rows[:-1]).all():
+            raise RuntimeError("partitioned dispatch needs rows sorted "
+                               "ascending (the stages sort them)")
+        kk = len(self._devs)
+        p = sp // kk
+        edges = np.searchsorted(rows - base, np.arange(kk + 1) * p)
+        for k in range(kk):
+            j0, j1 = int(edges[k]), int(edges[k + 1])
+            if j1 > j0:
+                with self._on(k):
+                    yield k, slice(j0, j1), base + k * p, p, self._devs[k]
+
+    def _put_plane(self, host: np.ndarray):
+        """A padded host plane ([cap] or [cap, C]) to the device: one
+        tensor, or one per partition."""
+        if self._devs is None:
+            return self._h2d(host)
+        p = len(host) // len(self._devs)
+        return [self._h2d(host[k * p:(k + 1) * p], dev)
+                for k, dev in enumerate(self._devs)]
+
+    def _full_plane(self, cap: int, fill: int, cols: int = 0,
+                    i32: bool = False):
+        """A neutral plane of `cap` rows made on the device(s)."""
+        if self._devs is None:
+            return self._full(cap, fill, cols, i32=i32)
+        p = cap // len(self._devs)
+        return [self._full(p, fill, cols, dev, i32) for dev in self._devs]
+
+    def _grow_plane(self, old, old_cap: int, cap: int, fill: int,
+                    cols: int = 0, i32: bool = False):
+        """Extend a plane from old_cap to cap neutral-filled rows.  A
+        partitioned plane re-splits: its boundaries move, so each new
+        partition gathers its range from the old ones."""
+        if self._devs is None:
+            return self._grow(old, cap - old_cap, fill, cols, i32)
+        kk = len(self._devs)
+        p0, p1 = old_cap // kk, cap // kk
+        out = []
+        for k, dev in enumerate(self._devs):
+            lo, hi = k * p1, (k + 1) * p1
+            pieces = []
+            for j in range(lo // p0, min(kk, -(-hi // p0))):
+                a, b = max(lo, j * p0), min(hi, (j + 1) * p0)
+                pieces.append(old[j][a - j * p0:b - j * p0].to(dev))
+            have = sum(x.shape[0] for x in pieces)
+            if have < p1:
+                pieces.append(self._full(p1 - have, fill, cols, dev, i32))
+            out.append(pieces[0] if have == 0 else torch.cat(pieces))
+        return out
+
+    def _plane_rows(self, col, n: int):
+        """Rows [0, n) of a plane: a view, or one view per partition
+        that holds any of them."""
+        if self._devs is None:
+            return col[:n]
+        p = col[0].shape[0]
+        return [part[:min(p, n - k * p)] for k, part in enumerate(col)
+                if n > k * p]
+
+    def _get_plane(self, col, n: int) -> np.ndarray:
+        """Download rows [0, n) of a plane (partition by partition)."""
+        if self._devs is None:
+            return self._get(col[:n])
+        return np.concatenate([self._get_pinned(t)
+                               for t in self._plane_rows(col, n)])
 
     # ---------------------------------------------------------- fold backend
 
@@ -436,7 +600,8 @@ class TorchMergeEngine:
             return self.dense_fold
         return "cuda" if self.device.type == "cuda" else "eager"
 
-    def _fold_apply(self, stacks, ids: np.ndarray, planes) -> np.ndarray:
+    def _fold_apply(self, stacks, ids: np.ndarray, planes,
+                    device=None) -> np.ndarray:
         """K1 with its apply: the [R, nA] stacks (t, node and, for
         elements, del_t; each given as its R host rows of nA) and the nA
         int32 state rows `ids` go up in ONE packed copy through the fold
@@ -445,7 +610,7 @@ class TorchMergeEngine:
         one pinned download.  -> win [nA] int32 host array: the winning
         batch where the batch beat the state row, else -1."""
         dev, (idx,) = self._h2d_packed([_Stack(r) for r in stacks], [ids],
-                                       slot=self._fold_slot)
+                                       slot=self._fold_slot, device=device)
         dt, st_dt = (dev[2], planes[2]) if len(dev) > 2 else (None, None)
         fn = KN.fold_apply if self._fold_backend() == "cuda" \
             else B.fold_apply
@@ -453,10 +618,26 @@ class TorchMergeEngine:
                  st_dt=st_dt)
         return self._get_pinned(win)
 
-    def _fold_pair(self, v_s, t_s):
+    def _fold_apply_parts(self, stacks, rows0: np.ndarray, base: int,
+                          sp: int, planes) -> np.ndarray:
+        """_fold_apply over range partitions: each partition holding some
+        of the (sorted) rows0 runs one K1 launch on its slice of the
+        stacks, with partition-local ids, into its own planes; the
+        winner columns concatenate in row order."""
+        wins = []
+        for k, sl, b, _p, dev in self._each_part(rows0, base, sp):
+            if self._fold_backend() == "cuda":
+                self.partition_launches[k]["merge_elems"] += 1
+            wins.append(self._fold_apply(
+                [[r[sl] for r in rs] for rs in stacks],
+                (rows0[sl] - b).astype(_I32),
+                tuple(pl[k] for pl in planes), dev))
+        return np.concatenate(wins)
+
+    def _fold_pair(self, v_s, t_s, device=None):
         """[R, N] stacks -> per-slot (value @ time) LWW with max-value tie:
         (val[N], t[N]) on device."""
-        v, t = self._h2d(v_s), self._h2d(t_s)
+        v, t = self._h2d(v_s, device), self._h2d(t_s, device)
         if self._fold_backend() == "cuda":
             return KN.merge_counters(v, t)
         return D.dense_merge_counters(v, t)
@@ -535,10 +716,11 @@ class TorchMergeEngine:
         res = self._res.get(fam) or {}
         src = res.get("src")
         if src is None:
-            return B.device_full(sp, -1, i32=True, device=self.device)
-        if src.shape[0] < sp:
-            src = torch.cat([src, B.device_full(sp - src.shape[0], -1,
-                                                i32=True, device=self.device)])
+            return self._full_plane(sp, -1, i32=True)
+        cap = src.shape[0] if self._devs is None \
+            else src[0].shape[0] * len(self._devs)
+        if cap < sp:
+            src = self._grow_plane(src, cap, sp, -1, i32=True)
         return src
 
     # ------------------------------------------------------------------ API
@@ -813,9 +995,10 @@ class TorchMergeEngine:
             self.flush_rows_full_equiv += n
             if dirty is None:
                 rows_d = None
-                fp = {name: cols[name][:n] for name in want}
+                # a partitioned plane downloads partition by partition
+                fp = {name: self._plane_rows(cols[name], n) for name in want}
                 if src is not None:
-                    fp["src"] = src[:n]
+                    fp["src"] = self._plane_rows(src, n)
                 if fp:
                     self.flush_rows_downloaded += n
             else:
@@ -828,23 +1011,33 @@ class TorchMergeEngine:
             pending[fam] = (rows_d, fp)
         started: dict[str, tuple] = {}
         for fam, (rows_d, fp) in pending.items():
-            hosts = {name: self._start_get(t) for name, t in fp.items()}
-            ev = None
-            if self.device.type == "cuda":
+            hosts = {name: [self._start_get(x) for x in t]
+                     if isinstance(t, list) else self._start_get(t)
+                     for name, t in fp.items()}
+            # one event behind the copies on each card involved
+            cards = {x.device for t in fp.values()
+                     for x in (t if isinstance(t, list) else (t,))
+                     if x.device.type == "cuda"}
+            evs = []
+            for card in cards:
                 ev = torch.cuda.Event()
-                ev.record()
-            started[fam] = (rows_d, hosts, ev)
+                ev.record(torch.cuda.current_stream(card))
+                evs.append(ev)
+            started[fam] = (rows_d, hosts, evs)
         pending.clear()
 
         whole_cnt = False
-        for fam, (rows_d, hosts, ev) in started.items():
-            if ev is not None:
+        for fam, (rows_d, hosts, evs) in started.items():
+            for ev in evs:
                 ev.synchronize()
             res = self._res[fam]
             host = {}
             for name, h in hosts.items():
-                self.bytes_d2h += h.numel() * h.element_size()
-                host[name] = h.numpy()
+                hs = h if isinstance(h, list) else [h]
+                for x in hs:
+                    self.bytes_d2h += x.numel() * x.element_size()
+                host[name] = hs[0].numpy() if len(hs) == 1 else \
+                    np.concatenate([x.numpy() for x in hs])
             if rows_d is None:
                 whole_cnt |= fam == "cnt" and bool(host)
                 self._apply_whole(store, fam, res, host)
@@ -1037,18 +1230,19 @@ class TorchMergeEngine:
             table = _host_table(store, fam)
             if fam == "env":
                 host = np.stack([table.col(c)[:n] for c, _ in spec], axis=-1)
-                cols = {"stack": self._h2d(_pad(host, cap, 0))}
+                cols = {"stack": self._put_plane(_pad(host, cap, 0))}
             else:
-                cols = {c: self._h2d(
+                cols = {c: self._put_plane(
                     _pad(table.col(c)[:n], cap, fill)) for c, fill in spec}
         elif n > res["cap"]:
             old = res["cols"]
-            delta = cap - res["cap"]
+            if self._devs is not None:
+                self.resplits += 1
             if fam == "env":
-                cols = {"stack": self._grow(old["stack"], delta, 0,
-                                            cols=len(spec))}
+                cols = {"stack": self._grow_plane(old["stack"], res["cap"],
+                                                  cap, 0, cols=len(spec))}
             else:
-                cols = {c: self._grow(old[c], delta, fill)
+                cols = {c: self._grow_plane(old[c], res["cap"], cap, fill)
                         for c, fill in spec}
         else:
             cols = res["cols"]
@@ -1073,14 +1267,30 @@ class TorchMergeEngine:
         the row ids and every column in one copy."""
         table = _host_table(store, fam)
         names = [c for c, _ in _FAMILIES[fam]]
-        up = self._h2d(np.stack([rows] + [table.col(c)[rows]
-                                          for c in names]).astype(_I64))
-        idx = up[0]
-        if fam == "env":
-            cols["stack"][idx] = up[1:].T
-            return
-        for i, c in enumerate(names):
-            cols[c][idx] = up[1 + i]
+        mat = np.stack([rows] + [table.col(c)[rows]
+                                 for c in names]).astype(_I64)
+        if self._devs is None:
+            parts = [(None, mat, self.device)]
+        else:
+            # partition k takes its rows, made partition-local
+            p = (cols["stack"] if fam == "env" else cols[names[0]])[0]
+            p = p.shape[0]
+            owner = rows // p
+            parts = []
+            for k in np.unique(owner).tolist():
+                m = mat[:, owner == k]
+                m[0] -= k * p
+                parts.append((k, m, self._devs[k]))
+        for k, m, dev in parts:
+            up = self._h2d(m, dev)
+            idx = up[0]
+            if fam == "env":
+                plane = cols["stack"] if k is None else cols["stack"][k]
+                plane[idx] = up[1:].T
+                continue
+            for i, c in enumerate(names):
+                plane = cols[c] if k is None else cols[c][k]
+                plane[idx] = up[1 + i]
 
     def _family_done(self, fam: str, cols: dict, n: int, cap: int,
                      src=None, written=None, recon=None) -> None:
@@ -1440,11 +1650,45 @@ class TorchMergeEngine:
             return
         t0 = time.perf_counter()
         cols = res["cols"]
+        if self._devs is not None:
+            store.keys.cnt_sum[:nk] = self._partition_sums(store, cols, n, nk)
+            self.family_secs["sums"] += time.perf_counter() - t0
+            return
         _, (ids,) = self._h2d_packed([], [store.cnt.kid[:n]])
         sums = KN.segment_sum(ids, cols["val"][:n], nk,
                               base=cols["base"][:n])
         store.keys.cnt_sum[:nk] = self._get_pinned(sums)
         self.family_secs["sums"] += time.perf_counter() - t0
+
+    def _partition_sums(self, store: KeySpace, cols: dict, n: int,
+                        nk: int) -> np.ndarray:
+        """The counter sums of a partitioned cnt plane: one K4 launch per
+        partition holding slot rows (its slot kids up through the staging
+        ring, its val - base summed per key over ALL nk keys), then the
+        partial sums added mod 2^64 on the host (numpy int64 adds wrap):
+        one key's slots may straddle a partition boundary."""
+        vals = self._plane_rows(cols["val"], n)
+        bases = self._plane_rows(cols["base"], n)
+        p = cols["val"][0].shape[0]
+        partial = []
+        for k, (v, b) in enumerate(zip(vals, bases)):
+            with self._on(k):
+                _, (ids,) = self._h2d_packed(
+                    [], [store.cnt.kid[k * p:k * p + v.shape[0]]],
+                    device=self._devs[k])
+                sums = KN.segment_sum(ids, v, nk, base=b)
+                self.partition_launches[k]["segment_sum"] += 1
+                partial.append(self._start_get(sums))
+        for card in {d for d in self._devs[:len(partial)]
+                     if d.type == "cuda"}:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(card))
+            ev.synchronize()
+        out = np.zeros(nk, dtype=_I64)
+        for h in partial:
+            self.bytes_d2h += h.numel() * h.element_size()
+            out += h.numpy()
+        return out
 
     # ---------------------------------------------------- tensor registers
     # The tensor-valued register family (crdt/tensor.py): contributor slot
@@ -1864,8 +2108,10 @@ class TorchMergeEngine:
     def _use_bulk(self, total_rows: int, region: int) -> bool:
         if not self._unique_ok:
             return False
-        if self.resident:
-            return True  # no state upload to amortize: bulk always wins
+        if self.resident or self._devs is not None:
+            # resident: no state upload to amortize, bulk always wins;
+            # range partitions: bulk is the partitioned path
+            return True
         return region > 0 and total_rows * self.BULK_FRACTION >= region
 
     @staticmethod
@@ -1880,13 +2126,13 @@ class TorchMergeEngine:
         return 0, n, False
 
     def _upload_batch(self, rows: np.ndarray, base: int, sp: int,
-                      cols: list[tuple[np.ndarray, int]]):
+                      cols: list[tuple[np.ndarray, int]], device=None):
         """Upload one batch: int32 ids (padded with distinct out-of-range
         slots) + padded value columns."""
         n = len(rows)
         np_ = K.next_pow2(max(n, 1))
-        return [self._batch_idx(rows, base, sp, np_)] + \
-            [self._h2d(_pad(c, np_, fill)) for c, fill in cols]
+        return [self._batch_idx(rows, base, sp, np_, device)] + \
+            [self._h2d(_pad(c, np_, fill), device) for c, fill in cols]
 
     def _iota_r0(self, rows: np.ndarray, base: int):
         """Device-relative start when `rows` is one long contiguous run
@@ -1902,7 +2148,20 @@ class TorchMergeEngine:
     def _bulk_src_call(self, fn, fn_iota, states, rows, base: int, sp: int,
                        cols, pb):
         """One src-tracking pass: contiguous rows take the iota variant
-        (no index upload, no pad mask); anything else uploads an idx."""
+        (no index upload, no pad mask); anything else uploads an idx.
+        Over range partitions each partition holding rows runs `fn` on
+        its slice (pool ids pb + the slice's first position onward) with
+        an idx, which may still be derived on the device; the fused iota
+        variants are single-device, as on the reference's mesh."""
+        if self._devs is not None:
+            for k, sl, b, p, dev in self._each_part(rows, base, sp):
+                n = sl.stop - sl.start
+                np_ = K.next_pow2(n)
+                fn(*(st[k] for st in states),
+                   self._batch_idx(rows[sl], b, p, np_, dev),
+                   *(self._h2d(_pad(c[sl], np_, fill), dev)
+                     for c, fill in cols), np.int32(pb + sl.start))
+            return states
         n = len(rows)
         np_ = K.next_pow2(max(n, 1))
         dev = [self._h2d(_pad(c, np_, fill)) for c, fill in cols]
@@ -1912,22 +2171,24 @@ class TorchMergeEngine:
         idx = self._batch_idx(rows, base, sp, np_)
         return fn(*states, idx, *dev, pb)
 
-    def _batch_idx(self, rows: np.ndarray, base: int, sp: int, np_: int):
+    def _batch_idx(self, rows: np.ndarray, base: int, sp: int, np_: int,
+                   device=None):
         n = len(rows)
         r0 = self._iota_r0(rows, base)
         if r0 is not None:
-            return B.idx_iota(r0, n, np_, sp, self.device)
+            return B.idx_iota(r0, n, np_, sp,
+                              self.device if device is None else device)
         idx = np.empty(np_, dtype=_I32)
         idx[:n] = rows - base
         if np_ > n:
             idx[n:] = sp + np.arange(np_ - n, dtype=_I32)
-        return self._h2d(idx)
+        return self._h2d(idx, device)
 
     def _state_up(self, col: np.ndarray, base: int, size: int, sp: int,
                   fill: int, all_new: bool):
         if all_new:
-            return self._full(sp, fill)
-        return self._h2d(_pad(col[base:base + size], sp, fill))
+            return self._full_plane(sp, fill)
+        return self._put_plane(_pad(col[base:base + size], sp, fill))
 
     @staticmethod
     def _i32_up(arr: np.ndarray, fill64: int):
@@ -1985,6 +2246,8 @@ class TorchMergeEngine:
             staged,
             lambda st_: (st_[0][0], np.maximum.reduce([s[1] for s in st_])),
             lambda st_, cat: (cat, np.concatenate([s[1] for s in st_])))
+        if self._devs is not None:
+            staged = [_row_sorted(e) for e in staged]
         plan = {"staged": staged, "folds": folds}
         if self.resident and self._host_combine() and self._unique_ok:
             plan["mode"] = "host"
@@ -2039,10 +2302,12 @@ class TorchMergeEngine:
             else:
                 sp = self._sp_size(size)
                 if all_new:
-                    state = self._full(sp, 0, cols=4)
+                    state = self._full_plane(sp, 0, cols=4)
                 else:
-                    state = self._h2d(plan["state_host"])
-            if plan["fold"]:
+                    state = self._put_plane(plan["state_host"])
+            if self._devs is not None:
+                self._env_parts(plan, state, base, sp)
+            elif plan["fold"]:
                 # plain max: one stacked reduction, one write
                 _rows0, _nA, _np, idx = self._fold_prep(staged, base, sp)
                 state = B.bulk_max(state, idx,
@@ -2055,7 +2320,7 @@ class TorchMergeEngine:
             if self.resident:
                 self._family_done("env", {"stack": state}, n, sp)
                 return
-            out = self._get(state[:size])
+            out = self._get_plane(state, size)
             store.keys.ct[base:n] = out[:, 0]
             store.keys.mt[base:n] = out[:, 1]
             store.keys.dt[base:n] = out[:, 2]
@@ -2086,6 +2351,40 @@ class TorchMergeEngine:
         store.keys.mt[trows] = mt
         store.keys.dt[trows] = dt
         store.keys.expire[trows] = exp
+
+    def _env_parts(self, plan, state: list, base: int, sp: int) -> None:
+        """The envelope bulk merge over range partitions: per partition
+        holding rows, the aligned fold's max (or each batch) into its
+        slice of the [Sp, 4] plane."""
+        staged = plan["staged"]
+        if plan["fold"]:
+            rows0 = staged[0][0]
+            self.folds += 1
+            for k, sl, b, p, dev in self._each_part(rows0, base, sp):
+                np_ = K.next_pow2(sl.stop - sl.start)
+                B.bulk_max(state[k],
+                           self._batch_idx(rows0[sl], b, p, np_, dev),
+                           D.dense_max(self._h2d(
+                               _pad_cols(plan["stack"][:, sl], np_, 0),
+                               dev)))
+            return
+        for pos, m in staged:
+            for k, sl, b, p, dev in self._each_part(pos, base, sp):
+                idx, c = self._upload_batch(pos[sl], b, p, [(m[sl], 0)], dev)
+                B.bulk_max(state[k], idx, c)
+
+    def _lww_parts(self, t: list, nd: list, rows, bt, bn, base: int,
+                   sp: int) -> np.ndarray:
+        """bulk_lww of one batch over range partitions -> its host win
+        flags, in batch order."""
+        win = np.zeros(len(rows), dtype=bool)
+        for k, sl, b, p, dev in self._each_part(rows, base, sp):
+            idx, bt_d, bn_d = self._upload_batch(
+                rows[sl], b, p, [(bt[sl], K.NEUTRAL_T),
+                                 (bn[sl], K.NEUTRAL_T)], dev)
+            w = B.bulk_lww(t[k], nd[k], idx, bt_d, bn_d)[2]
+            win[sl] = self._get(w)[:sl.stop - sl.start]
+        return win
 
     # ------------------------------------------------------------ registers
 
@@ -2127,6 +2426,8 @@ class TorchMergeEngine:
                     np.concatenate([s[2] for s in st_]), vals_cat)
 
         staged, folds = self._combine_groups(staged, _fold_reg, _cat_reg)
+        if self._devs is not None:
+            staged = [_row_sorted(e) for e in staged]
         plan = {"staged": staged, "folds": folds}
         total = sum(len(p) for p, *_ in staged)
         n = store.keys.n
@@ -2175,12 +2476,19 @@ class TorchMergeEngine:
             fold = plan["fold"]
             if fold:
                 # one K1 launch folds the stacks and applies the winners
-                # to (t, nd) in place
+                # to (t, nd) in place (one per partition holding rows)
                 rows0 = staged[0][0]
                 self.folds += 1
-                winb = self._fold_apply(
-                    [[s[i] for s in staged] for i in (1, 2)],
-                    (rows0 - base).astype(_I32), (t, nd))
+                stacks = [[s[i] for s in staged] for i in (1, 2)]
+                if self._devs is not None:
+                    winb = self._fold_apply_parts(stacks, rows0, base, sp,
+                                                  (t, nd))
+                else:
+                    winb = self._fold_apply(
+                        stacks, (rows0 - base).astype(_I32), (t, nd))
+            elif self._devs is not None:
+                wins = [self._lww_parts(t, nd, p, bt, bn, base, sp)
+                        for p, bt, bn, _ in staged]
             else:
                 dev = [self._upload_batch(p, base, sp,
                                           [(bt, K.NEUTRAL_T),
@@ -2193,15 +2501,17 @@ class TorchMergeEngine:
             if self.resident:
                 self._family_done("reg", {"rv_t": t, "rv_node": nd}, n, sp)
             else:
-                store.keys.rv_t[base:n] = self._get(t[:size])
-                store.keys.rv_node[base:n] = self._get(nd[:size])
+                store.keys.rv_t[base:n] = self._get_plane(t, size)
+                store.keys.rv_node[base:n] = self._get_plane(nd, size)
             reg_val = store.reg_val
             if fold:
                 for j in np.nonzero(winb >= 0)[0]:
                     reg_val[int(rows0[j])] = staged[int(winb[j])][3][int(j)]
                 return
             for (pos, _, _, vals), win in zip(staged, wins):
-                for j in np.nonzero(self._get(win)[: len(pos)])[0]:
+                win_h = win if isinstance(win, np.ndarray) \
+                    else self._get(win)[: len(pos)]
+                for j in np.nonzero(win_h)[0]:
                     reg_val[int(pos[j])] = vals[int(j)]
             return
         # scatter path: registers are LWW slots, the element add-side
@@ -2269,6 +2579,8 @@ class TorchMergeEngine:
             staged, _fold_cnt,
             lambda st_, cat: (cat,) + tuple(
                 np.concatenate([s[i] for s in st_]) for i in range(1, 5)))
+        if self._devs is not None:
+            staged = [_row_sorted(e) for e in staged]
         plan = {"staged": staged, "folds": folds, "n0": n0}
         total = sum(len(r) for r, *_ in staged)
         n = store.cnt.n
@@ -2322,6 +2634,16 @@ class TorchMergeEngine:
                             B.bulk_counters_vu_src_iota, (val, uuid, src),
                             r, base, sp, [self._i32_up(v, 0),
                                           (u, K.NEUTRAL_T)], pb)
+                    elif self._devs is not None:
+                        for k, sl, b, p, dev in self._each_part(r, base, sp):
+                            B.bulk_counters_src(
+                                val[k], uuid[k], cb[k], cbt[k], src[k],
+                                *self._upload_batch(
+                                    r[sl], b, p,
+                                    [(v[sl], 0), (u[sl], K.NEUTRAL_T),
+                                     (bb[sl], 0), (bt[sl], K.NEUTRAL_T)],
+                                    dev), np.int32(pb + sl.start))
+                        written |= {"base", "base_t"}
                     else:
                         idx, dv, du, dbb, dbt = self._upload_batch(
                             r, base, sp, [(v, 0), (u, K.NEUTRAL_T), (bb, 0),
@@ -2335,7 +2657,9 @@ class TorchMergeEngine:
                                   src=src, written=written,
                                   recon={"val": "val", "uuid": "uuid"})
                 return
-            if plan["fold"]:
+            if self._devs is not None:
+                self._counter_parts(plan, (val, uuid, cb, cbt), base, sp)
+            elif plan["fold"]:
                 # aligned counter rows (the same (key, node) slots in
                 # every batch): fold both (value @ time) pairs with K2,
                 # write once
@@ -2366,10 +2690,10 @@ class TorchMergeEngine:
                 self._family_done("cnt", {"val": val, "uuid": uuid,
                                           "base": cb, "base_t": cbt}, n, sp)
                 return
-            store.cnt.val[base:n] = self._get(val[:size])
-            store.cnt.uuid[base:n] = self._get(uuid[:size])
-            store.cnt.base[base:n] = self._get(cb[:size])
-            store.cnt.base_t[base:n] = self._get(cbt[:size])
+            store.cnt.val[base:n] = self._get_plane(val, size)
+            store.cnt.uuid[base:n] = self._get_plane(uuid, size)
+            store.cnt.base[base:n] = self._get_plane(cb, size)
+            store.cnt.base_t[base:n] = self._get_plane(cbt, size)
             return  # sums re-derived in one pass by merge_many
 
         self._drop_family(store, "cnt")
@@ -2395,6 +2719,41 @@ class TorchMergeEngine:
             # merge_many's sum pass is skipped while other families hold
             # unflushed device state; this path already wrote the host
             store.recompute_counter_sums()
+
+    def _counter_parts(self, plan, state: tuple, base: int, sp: int) -> None:
+        """The counter bulk merge over range partitions (the src-free
+        branches): per partition holding rows, the aligned fold's two K2
+        launches on its slice of the stacks and one bulk_counters, or
+        each batch's bulk_counters(_vu)."""
+        staged = plan["staged"]
+        if plan["fold"]:
+            rows0 = staged[0][0]
+            self.folds += 1
+            for k, sl, b, p, dev in self._each_part(rows0, base, sp):
+                np_ = K.next_pow2(sl.stop - sl.start)
+                idx = self._batch_idx(rows0[sl], b, p, np_, dev)
+                pair = [self._fold_pair(_pad_cols(plan[vn][:, sl], np_, 0),
+                                        _pad_cols(plan[tn][:, sl], np_,
+                                                  K.NEUTRAL_T), dev)
+                        for vn, tn in (("v_s", "u_s"), ("b_s", "bt_s"))]
+                if self._fold_backend() == "cuda":
+                    self.partition_launches[k]["merge_counters"] += 2
+                B.bulk_counters(*(st[k] for st in state), idx, *pair[0],
+                                *pair[1])
+            return
+        for r, v, u, bb, bt in staged:
+            vu_only = self.resident and (bt == K.NEUTRAL_T).all()
+            for k, sl, b, p, dev in self._each_part(r, base, sp):
+                cols = [(v[sl], 0), (u[sl], K.NEUTRAL_T)]
+                if vu_only:
+                    B.bulk_counters_vu(state[0][k], state[1][k],
+                                       *self._upload_batch(r[sl], b, p, cols,
+                                                           dev))
+                else:
+                    cols += [(bb[sl], 0), (bt[sl], K.NEUTRAL_T)]
+                    B.bulk_counters(*(st[k] for st in state),
+                                    *self._upload_batch(r[sl], b, p, cols,
+                                                        dev))
 
     def _resolve_cnt_rows(self, store: KeySpace, kids: np.ndarray,
                           nodes: np.ndarray) -> np.ndarray:
@@ -2526,6 +2885,8 @@ class TorchMergeEngine:
                     vals_cat, hv)
 
         staged, folds = self._combine_groups(staged, _fold_el, _cat_el)
+        if self._devs is not None:
+            staged = [_row_sorted(e) for e in staged]
         plan = {"staged": staged, "folds": folds, "n0": n0,
                 "el_epoch": store.el_compact_epoch}
         total = sum(len(r) for r, *_ in staged)
@@ -2599,12 +2960,29 @@ class TorchMergeEngine:
             fold = plan["fold"]
             if fold:
                 # one K1 launch folds the stacks and applies the winners
-                # to (at, an, dt) in place
+                # to (at, an, dt) in place (one per partition holding rows)
                 rows0 = staged[0][0]
                 self.folds += 1
-                winb = self._fold_apply(
-                    [[s[i] for s in staged] for i in (1, 2, 3)],
-                    (rows0 - base).astype(_I32), (at, an, dt))
+                stacks = [[s[i] for s in staged] for i in (1, 2, 3)]
+                if self._devs is not None:
+                    winb = self._fold_apply_parts(stacks, rows0, base, sp,
+                                                  (at, an, dt))
+                else:
+                    winb = self._fold_apply(
+                        stacks, (rows0 - base).astype(_I32), (at, an, dt))
+            elif self._devs is not None:
+                wins = []
+                for r, a, x, d, _, _ in staged:
+                    win = np.zeros(len(r), dtype=bool)
+                    for k, sl, b, p, dev in self._each_part(r, base, sp):
+                        w = B.bulk_elems(at[k], an[k], dt[k],
+                                         *self._upload_batch(
+                                             r[sl], b, p,
+                                             [(a[sl], K.NEUTRAL_T),
+                                              (x[sl], K.NEUTRAL_T),
+                                              (d[sl], 0)], dev))[3]
+                        win[sl] = self._get(w)[:sl.stop - sl.start]
+                    wins.append(win)
             else:
                 dev = [self._upload_batch(
                     r, base, sp, [(a, K.NEUTRAL_T), (x, K.NEUTRAL_T), (d, 0)])
@@ -2617,10 +2995,10 @@ class TorchMergeEngine:
                 self._family_done("el", {"add_t": at, "add_node": an,
                                          "del_t": dt}, n, sp)
             else:
-                m_at = self._get(at[:size])
-                m_dt = self._get(dt[:size])
+                m_at = self._get_plane(at, size)
+                m_dt = self._get_plane(dt, size)
                 store.el.add_t[base:n] = m_at
-                store.el.add_node[base:n] = self._get(an[:size])
+                store.el.add_node[base:n] = self._get_plane(an, size)
                 store.el.del_t[base:n] = m_dt
                 self._enqueue_elem_garbage(store, np.arange(base, n), m_at,
                                            m_dt, old_dt)
@@ -2638,7 +3016,8 @@ class TorchMergeEngine:
                         else sv[int(j)]
                 return
             for (pos, _, _, _, vals, has_vals), win in zip(staged, wins):
-                win_arr = self._get(win)[: len(pos)]
+                win_arr = win if isinstance(win, np.ndarray) \
+                    else self._get(win)[: len(pos)]
                 if has_vals:
                     for j in np.nonzero(win_arr)[0]:
                         el_val[int(pos[j])] = vals[int(j)]

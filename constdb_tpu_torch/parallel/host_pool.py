@@ -86,11 +86,15 @@ def engine_secs(engine) -> dict:
 
 
 def _worker_main(conn, shard: int, n_shards: int, engine_spec: str,
-                 dense_fold: str, env: dict, device) -> None:
-    """Shard worker loop: one KeySpace + one lazily built merge engine."""
+                 dense_fold: str, env: dict, device_name) -> None:
+    """Shard worker loop: one KeySpace + one lazily built merge engine.
+    `device_name`: the engine's device as a string (None = the worker's
+    current CUDA device), rebuilt here into a torch.device."""
     # the parent's knobs were captured at pool creation, which may
     # post-date the forkserver's inherited environment
     os.environ.update(env)
+    import torch
+    device = None if device_name is None else torch.device(device_name)
     from ..engine.base import batch_from_keyspace
     from ..persist.snapshot import (_decode_batch, _encode_batch,
                                     _read_bytes_list)
@@ -201,6 +205,11 @@ def _worker_main(conn, shard: int, n_shards: int, engine_spec: str,
                 from multiprocessing import shared_memory
                 payload = bytes(_encode_batch(
                     batch_from_keyspace(flushed_store())))
+                # ownership transfers across messages BY DESIGN: the
+                # parent copies the segment out, then sends export_free,
+                # whose branch below close()s + unlink()s it; a crashed
+                # worker's segment is reclaimed by the shared resource
+                # tracker at exit.  # lint: ignore[SHM-LIFECYCLE]
                 export_shm = shared_memory.SharedMemory(
                     create=True, size=max(len(payload), 1))
                 export_shm.buf[: len(payload)] = payload
@@ -293,11 +302,13 @@ class HostShardPool:
         # jid -> {"acks": remaining, "shm": segment, "pins": refs}
         self._jobs: dict[int, dict] = {}
         self.rows_merged = [0] * n_shards
+        # the device crosses to the workers as plain data (its name)
+        dev_name = self.device
         for s in range(n_shards):
             parent, child = ctx.Pipe()
             p = ctx.Process(target=_worker_main,
                             args=(child, s, n_shards, engine_spec,
-                                  dense_fold, wenv, self.device),
+                                  dense_fold, wenv, dev_name),
                             daemon=True)
             p.start()
             child.close()

@@ -87,6 +87,24 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+    # the multi-device entry points: the partitioned engine, its device
+    # list, the rep x kv world and the entry twins
+    from constdb_tpu_torch.entry import dryrun_multichip, entry
+    from constdb_tpu_torch.parallel.sharded import (engine_mesh, init_world,
+                                                    run_world)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchMergeEngine(devices=["cuda", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_world(0, 1, "tcp://127.0.0.1:1")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_world(1, dict)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(2)
+    assert engine_mesh(2, device="cpu") == [torch.device("cpu")] * 2
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):
