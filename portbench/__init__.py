@@ -1,0 +1,1 @@
+"""The benchmark of constdb_tpu_torch on the H100 (see run.py)."""

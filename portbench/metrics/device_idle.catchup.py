@@ -1,0 +1,10 @@
+"""device_idle.catchup: the share of the traced window in which no
+operation ran on the device (busy seconds: the union of the trace's
+device events)."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
