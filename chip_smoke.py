@@ -1943,10 +1943,10 @@ def replication_phase(dev, n_frames: int, stream_keys: int) -> dict:
 
     def timed(spent: dict, name: str, fn):
         """fn, with its seconds added to spent[name]."""
-        def call(*a):
+        def call(*a, **kw):
             t = time.perf_counter()
             try:
-                return fn(*a)
+                return fn(*a, **kw)
             finally:
                 spent[name] += time.perf_counter() - t
         return call

@@ -20,8 +20,24 @@ from typing import Optional, Protocol
 import numpy as np
 
 from ..store.keyspace import KeySpace
+from ..utils import trace
 
 _I64 = np.int64
+
+# why a flush ran (`flush_for`): a replicated barrier's, another reader's,
+# the win pool's byte bound or int32 ceiling, before a bulk branch that
+# does not track src, a memory release, a host update of a mirrored family
+FLUSH_CAUSES = ("barrier", "read", "pool_bytes", "pool_ceiling", "pre_bulk",
+                "release", "drop_family")
+
+
+def flush_for(engine, store: KeySpace, cause: str) -> None:
+    """`engine.flush(store)`, counted in the engine's totals as
+    `engine.flushes.<cause>` (one of FLUSH_CAUSES) when it has deferred
+    state to write back."""
+    if engine.needs_flush:
+        trace.count(f"engine.flushes.{cause}", into=engine.spans)
+        engine.flush(store)
 
 
 @dataclass

@@ -69,7 +69,6 @@ import concurrent.futures
 import contextlib
 import logging
 import os
-import time
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -82,8 +81,9 @@ from ..ops import dense as D
 from ..ops import kernels as KN
 from ..ops import segment as K
 from ..store.keyspace import KeySpace
+from ..utils import trace
 from ..utils.device import resolve_device
-from .base import ColumnarBatch, MergeStats, has_values
+from .base import ColumnarBatch, MergeStats, flush_for, has_values
 from .hostbatch import HOST_MICRO_MAX
 
 log = logging.getLogger(__name__)
@@ -319,15 +319,9 @@ class TorchMergeEngine:
         # in place on the device]
         self.micro_rounds = {f: [0, 0] for f in ("reg", "cnt", "el", "tns")}
         self.micro_rows = {f: [0, 0] for f in ("reg", "cnt", "el", "tns")}
-        # cumulative host seconds per family on the critical path
-        # (stage-wait + dispatch); `flush` includes its downloads and
-        # `sums` (the device counter-sum re-derivation), `host` the
-        # whole-round host fallback and `micro` the steady rounds.
-        # stage_secs: background staging time.
-        self.family_secs = {"env": 0.0, "reg": 0.0, "cnt": 0.0, "el": 0.0,
-                            "flush": 0.0, "sums": 0.0, "host": 0.0,
-                            "micro": 0.0}
-        self.stage_secs = {"env": 0.0, "reg": 0.0, "cnt": 0.0, "el": 0.0}
+        # this engine's spans and counters (utils/trace.py): the timers
+        # family_secs and stage_secs are views over them
+        self.spans = trace.Totals()
         if pipeline is None:
             pipeline = env_flag("CONSTDB_TORCH_PIPELINE", True)
         self.pipeline = bool(pipeline)
@@ -379,6 +373,27 @@ class TorchMergeEngine:
         self.needs_flush = False
         self._unique_ok = True
         self._n0_keys = 0
+
+    @property
+    def family_secs(self) -> dict:
+        """Cumulative host seconds per family on the critical path: the
+        wait for its staging plus its dispatch; `flush` includes its
+        downloads and `sums` (the device counter-sum re-derivation),
+        `host` the whole-round host fallback and `micro` the steady
+        rounds.  A view over this engine's spans."""
+        w = self.spans.wall
+        out = {f: w(f"engine.stage_wait.{f}") + w(f"engine.dispatch.{f}")
+               for f in self.FAM_ORDER}
+        out.update(flush=w("engine.flush"), sums=w("engine.sums"),
+                   host=w("engine.host_round"), micro=w("engine.micro_round"))
+        return out
+
+    @property
+    def stage_secs(self) -> dict:
+        """Cumulative staging seconds per family (on the staging threads,
+        beside dispatch).  A view over this engine's spans."""
+        return {f: self.spans.wall(f"engine.stage.{f}")
+                for f in self.FAM_ORDER}
 
     # ------------------------------------------------------------ transfers
 
@@ -757,19 +772,20 @@ class TorchMergeEngine:
                 self.POOL_ID_CEILING:
             log.info("win-source pool near int32 ceiling; flushing before "
                      "this merge round")
-            self.flush(store)
+            flush_for(self, store, "pool_ceiling")
         # replica snapshots of one keyspace share the key-list object (or
         # a key_shape token when chunked): resolve each distinct one once
         memo: dict = {}
         resolved = []
-        for b in batches:
-            mk = b.key_shape if b.key_shape is not None \
-                else ("id", id(b.keys), id(b.key_enc))
-            kid_of = memo.get(mk)
-            if kid_of is None:
-                kid_of = self._resolve_keys(store, b, st)
-                memo[mk] = kid_of
-            resolved.append((b, kid_of))
+        with trace.span("engine.resolve_keys", into=self.spans):
+            for b in batches:
+                mk = b.key_shape if b.key_shape is not None \
+                    else ("id", id(b.keys), id(b.key_enc))
+                kid_of = memo.get(mk)
+                if kid_of is None:
+                    kid_of = self._resolve_keys(store, b, st)
+                    memo[mk] = kid_of
+                resolved.append((b, kid_of))
         if not self._unique_ok and \
                 sum(b.n_rows for b in batches) <= self.HOST_SCATTER_MAX:
             # op-stream micro-batches.  The steady placement merges warm
@@ -777,22 +793,21 @@ class TorchMergeEngine:
             # take their host twins (see _micro_placement)
             placement = self._micro_placement(store, resolved)
             if placement is not None:
-                t0 = time.perf_counter()
-                for b, kid_of in resolved:
-                    self._merge_micro_resident(store, b, kid_of, st,
-                                               placement)
-                for fam, on_dev in placement.items():
-                    self.micro_rounds[fam][on_dev] += 1
-                if any(placement.values()):
-                    self.dev_rounds_resident += 1
-                elif placement:
-                    self.host_micro_rounds += 1
+                with trace.span("engine.micro_round", into=self.spans):
+                    for b, kid_of in resolved:
+                        self._merge_micro_resident(store, b, kid_of, st,
+                                                   placement)
+                    for fam, on_dev in placement.items():
+                        self.micro_rounds[fam][on_dev] += 1
+                    if any(placement.values()):
+                        self.dev_rounds_resident += 1
+                    elif placement:
+                        self.host_micro_rounds += 1
                 # an empty placement (env-only / delete-only round) counts
                 # in neither gauge: no device family was touched
-                self.family_secs["micro"] += time.perf_counter() - t0
                 if self.needs_flush and \
                         self._pool_bytes > self.pool_flush_bytes:
-                    self.flush(store)
+                    flush_for(self, store, "pool_bytes")
                 return st
             # whole-round host fallback (steady off): resident mirrors of
             # the touched planes sync down first
@@ -800,17 +815,16 @@ class TorchMergeEngine:
             for fam in list(self._res):
                 self._drop_family(store, fam)
             self.host_micro_rounds += 1
-            t0 = time.perf_counter()
-            rows0 = st.tensor_rows
-            for b, kid_of in resolved:
-                merge_host_batch(store, b, kid_of, st)
-            self.tns_host_rows += st.tensor_rows - rows0
-            self.family_secs["host"] += time.perf_counter() - t0
+            with trace.span("engine.host_round", into=self.spans):
+                rows0 = st.tensor_rows
+                for b, kid_of in resolved:
+                    merge_host_batch(store, b, kid_of, st)
+                self.tns_host_rows += st.tensor_rows - rows0
             return st
         # a src-tracked pool must resolve before a bulk branch that does
         # not track src (forced fold configs) writes into the same planes
         if self.resident and self._pool_size and not self._host_combine():
-            self.flush(store)
+            flush_for(self, store, "pre_bulk")
         self._fold_on = self._fold_backend() != "off"
         stage = {"env": self._stage_envelopes, "reg": self._stage_registers,
                  "cnt": self._stage_counter_rows, "el": self._stage_elem_rows}
@@ -829,20 +843,23 @@ class TorchMergeEngine:
             self._stage_pending = futs
             try:
                 for fam in self.FAM_ORDER:
-                    t0 = time.perf_counter()
-                    plan = futs[fam].result()
-                    dispatch[fam](store, plan, st)
-                    self.family_secs[fam] += time.perf_counter() - t0
+                    with trace.span(f"engine.stage_wait.{fam}",
+                                    into=self.spans):
+                        plan = futs[fam].result()
+                    with trace.span(f"engine.dispatch.{fam}",
+                                    into=self.spans):
+                        dispatch[fam](store, plan, st)
             finally:
                 # a dispatch error must not leave stages mutating the store
                 concurrent.futures.wait(list(futs.values()))
                 self._stage_pending = None
         else:
             for fam in self.FAM_ORDER:
-                t0 = time.perf_counter()
-                plan = self._timed_stage(fam, stage[fam], store, resolved, st)
-                dispatch[fam](store, plan, st)
-                self.family_secs[fam] += time.perf_counter() - t0
+                with trace.span(f"engine.stage_wait.{fam}", into=self.spans):
+                    plan = self._timed_stage(fam, stage[fam], store,
+                                             resolved, st)
+                with trace.span(f"engine.dispatch.{fam}", into=self.spans):
+                    dispatch[fam](store, plan, st)
         # tensor rows (few, payload-heavy) ride the resident payload
         # pools whenever the steady path is on; the host twin otherwise
         tns_device = self.resident and self.steady
@@ -861,7 +878,7 @@ class TorchMergeEngine:
         # bound the win pool's pinned host bytes
         if self.resident and self.needs_flush and \
                 self._pool_bytes > self.pool_flush_bytes:
-            self.flush(store)
+            flush_for(self, store, "pool_bytes")
         return st
 
     # ------------------------------------------------------ stage pipeline
@@ -906,7 +923,7 @@ class TorchMergeEngine:
         on) and the pinned host buffers.  Everything refills lazily on
         the next merge.  Loss-free: host state is exact before anything
         drops."""
-        self.flush(store)
+        flush_for(self, store, "release")
         self._forget_resident()
 
     def discard_resident(self) -> None:
@@ -935,11 +952,9 @@ class TorchMergeEngine:
             pass
 
     def _timed_stage(self, fam: str, fn, store, resolved, st):
-        t0 = time.perf_counter()
-        try:
+        """One family's stage, timed (wall and thread CPU)."""
+        with trace.span(f"engine.stage.{fam}", into=self.spans, cpu=True):
             return fn(store, resolved, st)
-        finally:
-            self.stage_secs[fam] += time.perf_counter() - t0
 
     def _join_staging(self) -> None:
         """Wait for in-flight family stages before any cross-plane
@@ -954,7 +969,8 @@ class TorchMergeEngine:
     def flush(self, store: KeySpace) -> None:
         """Write resident device state back into the host keyspace
         (resident mode only; a no-op otherwise), re-derive the counter
-        sums and enqueue element tombstones.
+        sums and enqueue element tombstones.  Timed in the span
+        `engine.flush`; base.flush_for counts it by cause.
 
         Dirty-row accounting: a family whose merges since the last flush
         were all steady micro rounds carries its dirty rows, and only
@@ -973,7 +989,10 @@ class TorchMergeEngine:
         if not self.needs_flush:
             return
         self._join_staging()
-        t0 = time.perf_counter()
+        with trace.span("engine.flush", into=self.spans):
+            self._flush(store)
+
+    def _flush(self, store: KeySpace) -> None:
         # fam -> (dirty rows or None for the whole plane, {name: tensor})
         pending: dict[str, tuple] = {}
         for fam, res in self._res.items():
@@ -1065,7 +1084,6 @@ class TorchMergeEngine:
             self._recompute_sums(store)
         self._flush_tns(store)
         self.needs_flush = False
-        self.family_secs["flush"] += time.perf_counter() - t0
 
     def _apply_whole(self, store: KeySpace, fam: str, res: dict,
                      host: dict) -> None:
@@ -1315,7 +1333,7 @@ class TorchMergeEngine:
         """A host-side (scatter) update is about to touch this family: sync
         device state down first, then forget the mirror."""
         if fam in self._res:
-            self.flush(store)
+            flush_for(self, store, "drop_family")
             del self._res[fam]
 
     # ------------------------------------------------ steady micro merges
@@ -1639,8 +1657,8 @@ class TorchMergeEngine:
         sums download into pinned memory behind an event.
         Otherwise the host pass.  Both are exact int64, bit-identical to
         KeySpace.recompute_counter_sums.  K4 has no segment cap: it runs
-        for any key count.  Timed under family_secs["sums"] (a part of
-        "flush")."""
+        for any key count.  Timed in the span `engine.sums` (inside
+        `engine.flush`)."""
         res = self._res.get("cnt")
         n = store.cnt.n
         nk = store.keys.n
@@ -1648,17 +1666,16 @@ class TorchMergeEngine:
                 and res["n"] == n and n and nk):
             store.recompute_counter_sums()
             return
-        t0 = time.perf_counter()
         cols = res["cols"]
-        if self._devs is not None:
-            store.keys.cnt_sum[:nk] = self._partition_sums(store, cols, n, nk)
-            self.family_secs["sums"] += time.perf_counter() - t0
-            return
-        _, (ids,) = self._h2d_packed([], [store.cnt.kid[:n]])
-        sums = KN.segment_sum(ids, cols["val"][:n], nk,
-                              base=cols["base"][:n])
-        store.keys.cnt_sum[:nk] = self._get_pinned(sums)
-        self.family_secs["sums"] += time.perf_counter() - t0
+        with trace.span("engine.sums", into=self.spans):
+            if self._devs is not None:
+                store.keys.cnt_sum[:nk] = self._partition_sums(store, cols,
+                                                               n, nk)
+                return
+            _, (ids,) = self._h2d_packed([], [store.cnt.kid[:n]])
+            sums = KN.segment_sum(ids, cols["val"][:n], nk,
+                                  base=cols["base"][:n])
+            store.keys.cnt_sum[:nk] = self._get_pinned(sums)
 
     def _partition_sums(self, store: KeySpace, cols: dict, n: int,
                         nk: int) -> np.ndarray:

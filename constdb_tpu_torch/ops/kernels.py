@@ -42,6 +42,7 @@ import os
 import shutil
 import threading
 import time
+from collections import deque
 from pathlib import Path
 
 import torch
@@ -71,8 +72,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"merge_elems": 0, "merge_counters": 0, "scatter_pair_src": 0,
             "segment_sum": 0, "tensor_take_reduce": 0}
 # [R, S, variant] of each fold_apply (K1) launch and [R, S] of each K2
-# launch since the last reset_launches()
-SHAPES: dict[str, list] = {"merge_elems": [], "merge_counters": []}
+# launch since the last reset_launches(), the newest SHAPES_KEPT of each
+SHAPES_KEPT = 4096
+SHAPES: dict[str, deque] = {"merge_elems": deque(maxlen=SHAPES_KEPT),
+                            "merge_counters": deque(maxlen=SHAPES_KEPT)}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

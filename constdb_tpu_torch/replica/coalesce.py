@@ -88,6 +88,7 @@ from ..resp.message import as_bytes, as_int
 from ..server.commands import (COLUMNAR_ENCODERS, KEY_SCOPED_BARRIERS,
                                NotColumnar, STATE_FREE_BARRIERS)
 from ..server.events import EVENT_PULL_LANDED
+from ..utils import trace
 
 _I64 = np.int64
 
@@ -544,16 +545,17 @@ class CoalescingApplier:
                                         list(items[5:]))
         bb = BatchBuilder(node.ks)
         failures: list = []
-        for name, recs in buf.items():
-            enc = COLUMNAR_ENCODERS[name]
-            try:
-                enc(bb, recs)
-            except _ENC_ERRORS:
-                for r in recs:
-                    try:
-                        enc(bb, [r])
-                    except _ENC_ERRORS:
-                        failures.append((name, r))
+        with trace.span("replica.encode", into=node.stats.spans):
+            for name, recs in buf.items():
+                enc = COLUMNAR_ENCODERS[name]
+                try:
+                    enc(bb, recs)
+                except _ENC_ERRORS:
+                    for r in recs:
+                        try:
+                            enc(bb, [r])
+                        except _ENC_ERRORS:
+                            failures.append((name, r))
         # per-flush bookkeeping, not per-frame (hot path): the stats
         # total matches the per-frame path's per-apply bumps, and the
         # clock observes the batch's newest uuid exactly when its
@@ -570,7 +572,8 @@ class CoalescingApplier:
                 # (idempotent) and the bad frame fails again — the
                 # per-frame path's behavior for malformed frames
                 node.stats.repl_apply_barriers += 1
-                node.apply_replicated(name, r[3][5:], r[1], r[2])
+                node.apply_replicated(name, r[3][5:], r[1], r[2],
+                                      cause="barrier")
         self._advance(self.cursor, wake=frames - len(failures) >= 2)
 
     def _barrier(self, name: bytes, items: list, origin: int,
@@ -593,7 +596,7 @@ class CoalescingApplier:
             if not (scoped or name in STATE_FREE_BARRIERS):
                 self.flush()
         node.stats.repl_apply_barriers += 1
-        node.apply_replicated(name, items[5:], origin, uuid)
+        node.apply_replicated(name, items[5:], origin, uuid, cause="barrier")
         if node.oplog is not None:
             node.oplog.append_frame(origin, uuid, name, list(items[5:]))
         self.cursor = uuid

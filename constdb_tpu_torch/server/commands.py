@@ -396,9 +396,10 @@ def _invalidate_read_cache(node: "Node", cmd: Command, args: list,
 
 
 def apply_replicated(node: "Node", name: bytes, args: list, origin_nodeid: int,
-                     uuid: int) -> Msg:
+                     uuid: int, cause: str = "read") -> Msg:
     """Replication-path dispatch with the originator's identity
-    (reference Cmd::exec_detail with repl=false, pull.rs:184-235)."""
+    (reference Cmd::exec_detail with repl=false, pull.rs:184-235).
+    `cause`: why the flush before it runs (Node.ensure_flushed)."""
     cmd = COMMANDS.get(name)
     if cmd is None:
         cmd = COMMANDS.get(name.lower())
@@ -407,7 +408,7 @@ def apply_replicated(node: "Node", name: bytes, args: list, origin_nodeid: int,
     if cmd.flags & CMD_CLIENT_ONLY:
         raise InvalidRequestMsg(f"'{name.decode()}' cannot come from a replica")
     node.stats.cmds_replicated += 1
-    node.ensure_flushed()
+    node.ensure_flushed(cause)
     node.hlc.observe(uuid)
     ctx = ExecCtx(uuid, origin_nodeid, True, None)
     if cmd.is_write:

@@ -12,7 +12,9 @@ engine's torch device (`torch.cuda.memory_allocated`, `mem_get_info`, the
 device name, and the kernel launch counts of ops/kernels.py) and are left
 out when the engine is not on a card; there is no `engine_degraded` (the
 port's engine factory never falls back).  Every other section and field
-keeps the reference's name.
+keeps the reference's name.  One section is the port's own and shows only
+when asked by name, `INFO trace`: the engine's flushes by cause and
+Python's collector (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ import numpy as np
 import torch
 
 from ..crdt import semantics as S
+from ..engine.base import FLUSH_CAUSES
 from ..resp.message import Bulk
+from ..utils import trace
 from .commands import CMD_READONLY, register
 
 
@@ -444,12 +448,30 @@ SECTIONS = {
 }
 
 
+def _section_trace(node, out) -> None:
+    """The program's counters (utils/trace.py): the engine's flushes that
+    ran, by cause (engine/base.py FLUSH_CAUSES), and Python's collector,
+    process-wide: its passes and seconds."""
+    spans = getattr(node.engine, "spans", None)
+    for cause in FLUSH_CAUSES:
+        out.append((f"engine_flushes_{cause}",
+                    0 if spans is None
+                    else spans.value(f"engine.flushes.{cause}")))
+    t = trace.gc_totals()
+    out.append(("gc_collections", t["gc.collections"]))
+    out.append(("gc_seconds_total", round(t["gc.seconds"], 6)))
+
+
+# sections INFO shows only when asked by name (as Redis's commandstats)
+ON_REQUEST = {"trace": _section_trace}
+
+
 @register("info", CMD_READONLY)
 def info_command(node, ctx, args):
     """(reference stats.rs:287-305)"""
     want = args.next_str().lower() if args.has_more else None
     lines = []
-    for name, fn in SECTIONS.items():
+    for name, fn in (ON_REQUEST if want in ON_REQUEST else SECTIONS).items():
         if want is not None and name != want:
             continue
         lines.append(f"# {name.capitalize()}")

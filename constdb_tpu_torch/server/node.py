@@ -18,7 +18,9 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
+from ..engine.base import flush_for
 from ..store.keyspace import KeySpace
+from ..utils import trace
 from ..utils.hlc import HLC
 from .events import EVENT_REPLICATED, EventBus
 from .repl_log import ReplLog
@@ -121,11 +123,24 @@ class NodeStats:
     tracking_demotions: int = 0
     merges: int = 0
     merge_rows: int = 0
-    merge_secs: float = 0.0
-    flush_secs: float = 0.0
     gc_freed: int = 0
     start_time: float = 0.0
     extra: dict = field(default_factory=dict)
+    # the spans of the node's entries (utils/trace.py): merge_secs and
+    # flush_secs are views over them
+    spans: trace.Totals = field(default_factory=trace.Totals)
+
+    @property
+    def merge_secs(self) -> float:
+        """Seconds inside the bulk merge entries (merge_batch,
+        merge_batches)."""
+        return self.spans.wall("node.merge_batch") + \
+            self.spans.wall("node.merge_batches")
+
+    @property
+    def flush_secs(self) -> float:
+        """Seconds inside flushes that ran (ensure_flushed)."""
+        return self.spans.wall("node.ensure_flushed")
 
 
 class CounterUndoLog:
@@ -299,10 +314,12 @@ class Node:
         return execute(self, req, client, uuid=uuid)
 
     def apply_replicated(self, name: bytes, args: list, origin_nodeid: int,
-                         uuid: int):
-        """One command from a peer's replication stream."""
+                         uuid: int, cause: str = "read"):
+        """One command from a peer's replication stream.  `cause`: why its
+        flush of device-resident state runs (see `ensure_flushed`): a
+        barrier of a coalesced stream passes "barrier"."""
         from .commands import apply_replicated
-        return apply_replicated(self, name, args, origin_nodeid, uuid)
+        return apply_replicated(self, name, args, origin_nodeid, uuid, cause)
 
     def replicate_cmd(self, uuid: int, name: bytes, args: list) -> None:
         """Append to the repl_log and wake pushers (reference
@@ -360,11 +377,9 @@ class Node:
         With a device-resident engine, merged state stays on the device
         between calls; it flushes to the host lazily before the next read
         (`ensure_flushed`)."""
-        import time
-        self._invalidate_reads((batch,))
-        t0 = time.perf_counter()
-        st = self.engine.merge(self.ks, batch)
-        self.stats.merge_secs += time.perf_counter() - t0
+        with trace.span("node.merge_batch", into=self.stats.spans):
+            self._invalidate_reads((batch,))
+            st = self.engine.merge(self.ks, batch)
         self.stats.merges += 1
         self.stats.merge_rows += batch.n_rows
         self._dump_stale()
@@ -421,11 +436,9 @@ class Node:
             for b in batches:
                 self.merge_batch(b)
             return
-        import time
-        self._invalidate_reads(batches)
-        t0 = time.perf_counter()
-        self.engine.merge_many(self.ks, batches)
-        self.stats.merge_secs += time.perf_counter() - t0
+        with trace.span("node.merge_batches", into=self.stats.spans):
+            self._invalidate_reads(batches)
+            self.engine.merge_many(self.ks, batches)
         self.stats.merges += 1
         self.stats.merge_rows += sum(b.n_rows for b in batches)
         if len(batches) > 1:
@@ -452,8 +465,9 @@ class Node:
         engine keeps env host-authoritative (engine/cuda.py micro path),
         so consecutive stream batches merge in place on device with no
         flush round-trip between them."""
-        self.ensure_flushed_for(("env",))
-        self.merge_batches([builder.finalize()])
+        with trace.span("node.merge_stream_batch", into=self.stats.spans):
+            self.ensure_flushed_for(("env",))
+            self.merge_batches([builder.finalize()])
         self.stats.repl_frames_coalesced += frames
         self.stats.repl_coalesce_flushes += 1
 
@@ -489,6 +503,10 @@ class Node:
         the zeroed watermark past ops the wipe discarded — the epoch bump
         makes links drop such stale-stream beacons (replica/link.py).
         `keep_link` (the link delivering the reset snapshot) stays up."""
+        with trace.span("node.reset_for_full_resync", into=self.stats.spans):
+            self._reset_for_full_resync(keep_link)
+
+    def _reset_for_full_resync(self, keep_link) -> None:
         engine = self.engine
         if hasattr(engine, "discard_resident"):
             engine.discard_resident()
@@ -538,15 +556,15 @@ class Node:
                     link.kick()
         self._dump_stale()
 
-    def ensure_flushed(self) -> None:
+    def ensure_flushed(self, cause: str = "read") -> None:
         """Sync device-resident merge state back to the host keyspace
-        before any read/write of the numeric plane."""
+        before any read/write of the numeric plane.  `cause`: why
+        (engine/base.py FLUSH_CAUSES: a replicated barrier's flush is
+        "barrier", every other reader's "read")."""
         engine = self.engine
         if getattr(engine, "needs_flush", False):
-            import time
-            t0 = time.perf_counter()
-            engine.flush(self.ks)
-            self.stats.flush_secs += time.perf_counter() - t0
+            with trace.span("node.ensure_flushed", into=self.stats.spans):
+                flush_for(engine, self.ks, cause)
 
     def ensure_flushed_for(self, families) -> None:
         """Flush only when unflushed device-resident state actually

@@ -594,7 +594,8 @@ class ShardApplier:
                 await self.aflush()
             node = self.node
             node.stats.repl_apply_barriers += 1
-            node.apply_replicated(name, items[5:], as_int(items[1]), uuid)
+            node.apply_replicated(name, items[5:], as_int(items[1]), uuid,
+                                  cause="barrier")
             if node.oplog is not None:
                 node.oplog.append_frame(as_int(items[1]), uuid, name,
                                         list(items[5:]),

@@ -107,3 +107,36 @@ def test_device_lines_read_the_engines_card(monkeypatch):
     assert lines["device"] == "cuda:0"
     assert lines["device_name"] == "card"
     assert lines["device_kernel_launches"] == "merge_elems=1,segment_sum=2"
+
+
+def test_trace_section_counts_flushes_by_cause_and_the_collector():
+    """`INFO trace`, shown only on request: the engine's flushes that ran
+    by cause (a replicated barrier's flush of a catch-up still on the
+    device counts under `barrier`), and the collector's passes and
+    seconds."""
+    import gc
+
+    from constdb_tpu_torch import workload
+    from constdb_tpu_torch.engine.base import FLUSH_CAUSES
+    from constdb_tpu_torch.utils.hlc import SEQ_BITS
+
+    node = Node(node_id=1, engine=TorchMergeEngine(device="cpu",
+                                                   resident=True))
+    node.merge_batches(workload.make_workload(200, 2, seed=3))
+    node.apply_replicated(b"delset", [PM.Bulk(b"zzz")], 2,
+                          (1_700_000_000_000 + 5) << SEQ_BITS,
+                          cause="barrier")
+    gc.collect()
+    text = node.execute(PM.Arr([PM.Bulk(b"info"),
+                                PM.Bulk(b"trace")])).val.decode()
+    assert layout(text) == [("Trace", [f"engine_flushes_{c}"
+                                       for c in FLUSH_CAUSES] +
+                             ["gc_collections", "gc_seconds_total"])]
+    lines = dict(ln.split(":", 1) for ln in text.split("\r\n")
+                 if ln and not ln.startswith("#"))
+    assert {c: lines[f"engine_flushes_{c}"] for c in FLUSH_CAUSES} == \
+        {c: "1" if c == "barrier" else "0" for c in FLUSH_CAUSES}
+    assert int(lines["gc_collections"]) >= 1
+    assert float(lines["gc_seconds_total"]) > 0
+    full = node.execute(PM.Arr([PM.Bulk(b"info")])).val.decode()
+    assert "# Trace" not in full and "engine_flushes_" not in full

@@ -836,3 +836,25 @@ def test_k5_avg_fused_plain_matches_jax_chain(n, dtype, k):
         r = np.asarray(r)
         same = (_bits(got) == _bits(r)) | (np.isnan(got) & np.isnan(r))
         assert same[keep].all()
+
+
+def test_fold_shapes_keep_the_newest_launches():
+    """kernels.SHAPES holds the [R, S] of the newest SHAPES_KEPT K1 and K2
+    launches (a server folding for its whole life does not grow it), and
+    reset_launches() empties it."""
+    kept = KN.SHAPES_KEPT
+    assert all(v.maxlen == kept for v in KN.SHAPES.values())
+    saved = {k: list(v) for k, v in KN.SHAPES.items()}
+    try:
+        KN.reset_launches()
+        for i in range(kept + 10):
+            KN.SHAPES["merge_counters"].append((8, i))
+        got = list(KN.SHAPES["merge_counters"])
+        assert len(got) == kept
+        assert got[0] == (8, 10) and got[-1] == (8, kept + 9)
+        KN.reset_launches()
+        assert not any(KN.SHAPES.values())
+    finally:
+        for k, v in saved.items():
+            KN.SHAPES[k].clear()
+            KN.SHAPES[k].extend(v)
