@@ -26,9 +26,12 @@ _I64 = np.int64
 
 # why a flush ran (`flush_for`): a replicated barrier's, another reader's,
 # the win pool's byte bound or int32 ceiling, before a bulk branch that
-# does not track src, a memory release, a host update of a mirrored family
+# does not track src, a memory release, a host update of a mirrored
+# family; and a key-scoped barrier's flush of its key's rows alone
+# (Node.ensure_flushed_for_key, which also counts `engine.barriers_clean`,
+# the key-scoped barriers whose key had nothing to write back)
 FLUSH_CAUSES = ("barrier", "read", "pool_bytes", "pool_ceiling", "pre_bulk",
-                "release", "drop_family")
+                "release", "drop_family", "barrier_key")
 
 
 def flush_for(engine, store: KeySpace, cause: str) -> None:

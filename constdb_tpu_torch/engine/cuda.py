@@ -90,6 +90,9 @@ log = logging.getLogger(__name__)
 
 _I64 = np.int64
 _I32 = np.int32
+# a row-tracked family's dirty mask (res["dirty"]: device-newer rows) when
+# no micro round has touched it since the last flush: host == device
+_CLEAN = np.zeros(0, dtype=bool)
 
 FOLD_MODES = ("auto", "cuda", "eager", "off")
 FAMILIES = ("env", "reg", "cnt", "el", "tns")
@@ -364,6 +367,9 @@ class TorchMergeEngine:
         # deferred win-value resolution (resident mode): host value pool
         # the device `src` planes index into, resolved once at flush
         self._val_pool: list[tuple[int, Optional[list], dict]] = []
+        # the pool segments' base ids, kept as they are added (a key
+        # flush looks a few ids up among thousands of segments)
+        self._pool_bases = np.zeros(64, dtype=_I64)
         self._pool_size = 0
         self._pool_bytes = 0
         # el rows whose HOST del_t advanced since the last flush
@@ -721,6 +727,11 @@ class TorchMergeEngine:
                 "win-source pool would exceed int32 range within a single "
                 "merge round; split the ingest into smaller merge_many "
                 "calls so flush() can run between them")
+        k = len(self._val_pool)
+        if k == len(self._pool_bases):
+            self._pool_bases = np.concatenate(
+                [self._pool_bases, np.zeros(k, dtype=_I64)])
+        self._pool_bases[k] = base
         self._val_pool.append((base, vals, cols))
         self._pool_size = base + n
         self._pool_bytes += nbytes
@@ -1000,33 +1011,20 @@ class TorchMergeEngine:
             if n == 0:
                 continue
             dirty = res.get("dirty")
-            if dirty is not None and not dirty:
+            if dirty is not None and not len(dirty):
                 continue  # untouched since the last flush: host == device
-            cols = res["cols"]
-            names = ["stack"] if fam == "env" else \
-                [name for name, _ in _FAMILIES[fam]]
-            written = res.get("written")
-            src = res.get("src")
-            recon = res.get("recon") if src is not None else None
-            want = [name for name in names
-                    if not (written is not None and name not in written)
-                    and not (recon and name in recon)]
             self.flush_rows_full_equiv += n
             if dirty is None:
                 rows_d = None
                 # a partitioned plane downloads partition by partition
-                fp = {name: self._plane_rows(cols[name], n) for name in want}
-                if src is not None:
-                    fp["src"] = self._plane_rows(src, n)
+                fp = {name: self._plane_rows(plane, n)
+                      for name, plane in self._flush_planes(fam, res)}
                 if fp:
                     self.flush_rows_downloaded += n
             else:
-                rows_d = np.unique(np.concatenate(dirty))
-                idx = self._h2d(rows_d.astype(_I32))
-                fp = {name: B.gather_rows(cols[name], idx) for name in want}
-                if src is not None:
-                    fp["src"] = B.gather_rows(src, idx)
-                self.flush_rows_downloaded += len(rows_d)
+                # a key flush took the rows it wrote back off the mask
+                rows_d = np.flatnonzero(dirty[:n])
+                fp, _ = self._gather_rows(fam, res, rows_d)
             pending[fam] = (rows_d, fp)
         started: dict[str, tuple] = {}
         for fam, (rows_d, fp) in pending.items():
@@ -1060,12 +1058,14 @@ class TorchMergeEngine:
             if rows_d is None:
                 whole_cnt |= fam == "cnt" and bool(host)
                 self._apply_whole(store, fam, res, host)
-            else:
+            elif len(rows_d):
                 self._apply_dirty(store, fam, res, host, rows_d)
             if res.get("written") is not None:
                 res["written"] = set()
-            # host now equals device for this plane
-            res["dirty"] = []
+            # host now equals device for this plane: src resolved, fresh
+            # tracking next round
+            res["src"] = None
+            res["dirty"] = _CLEAN
 
         if self._el_del_touched:
             # host-maintained del side (el src path): with add_t now
@@ -1084,6 +1084,35 @@ class TorchMergeEngine:
             self._recompute_sums(store)
         self._flush_tns(store)
         self.needs_flush = False
+
+    @staticmethod
+    def _flush_planes(fam: str, res: dict) -> list:
+        """[(name, device plane)] of what a flush of `fam` downloads: the
+        columns written since the mirror was built, less the
+        winner-carried ones that reconstruct from the value pool, and the
+        src plane."""
+        names = ["stack"] if fam == "env" else \
+            [name for name, _ in _FAMILIES[fam]]
+        written = res.get("written")
+        src = res.get("src")
+        recon = res.get("recon") if src is not None else None
+        out = [(name, res["cols"][name]) for name in names
+               if not (written is not None and name not in written)
+               and not (recon and name in recon)]
+        if src is not None:
+            out.append(("src", src))
+        return out
+
+    def _gather_rows(self, fam: str, res: dict, rows: np.ndarray):
+        """Gather `rows` (sorted unique int64) of what a flush of `fam`
+        downloads (`_flush_planes`), on the device.  -> ({name: gathered
+        tensor}, the uploaded row ids, None when `rows` is empty)."""
+        if not len(rows):
+            return {}, None
+        idx = self._h2d(rows)
+        self.flush_rows_downloaded += len(rows)
+        return {name: B.gather_rows(plane, idx)
+                for name, plane in self._flush_planes(fam, res)}, idx
 
     def _apply_whole(self, store: KeySpace, fam: str, res: dict,
                      host: dict) -> None:
@@ -1104,7 +1133,6 @@ class TorchMergeEngine:
                     table.col(name)[:n] = host[name]
         if "src" in host:
             self._apply_src(store, fam, host["src"], res)
-            res["src"] = None  # resolved; fresh tracking next round
         if el_dt_changed:
             self._enqueue_elem_garbage(store, np.arange(n), table.add_t[:n],
                                        table.del_t[:n], old_dt)
@@ -1129,7 +1157,6 @@ class TorchMergeEngine:
                     table.col(name)[rows_d] = host[name]
         if "src" in host:
             self._apply_src(store, fam, host["src"], res, rows=rows_d)
-            res["src"] = None
         if fam == "cnt":
             delta = store.cnt.val[rows_d] - store.cnt.base[rows_d] - \
                 old_contrib
@@ -1161,9 +1188,8 @@ class TorchMergeEngine:
             starts = np.zeros(1, dtype=_I64)
             ends = np.array([len(order)])
         else:
-            bases = np.fromiter((b for b, _, _ in pool), dtype=_I64,
-                                count=len(pool))
-            segs_all = np.searchsorted(bases, gids_all, side="right") - 1
+            segs_all = np.searchsorted(self._pool_bases[:len(pool)],
+                                       gids_all, side="right") - 1
             order = np.argsort(segs_all, kind="stable")
             uniq, starts = np.unique(segs_all[order], return_index=True)
             ends = np.append(starts[1:], len(order))
@@ -1227,19 +1253,25 @@ class TorchMergeEngine:
         ver = store.fam_ver[fam]
         patch = None
         if res is not None and res.get("ver") != ver:
-            # a stale mirror never holds unflushed device data (the caller
-            # flushes before every op-path write); if it does, that
-            # invariant broke upstream and dropping it would lose merges
-            if res.get("written"):
-                raise RuntimeError(
-                    f"{fam} mirror invalidated with unflushed merge data "
-                    "(flush-before-touch invariant broken upstream)")
             kids = store.keys_since(fam, res["ver"])
             if kids is not None:
                 patch = store.rows_of_keys(fam, kids)
-            if patch is None or (len(patch) and patch[-1] >= n):
+                if len(patch) and patch[-1] >= n:
+                    patch = None
+            # no row the host wrote since holds unflushed device data (the
+            # caller flushes, whole or the key's rows, before every op-path
+            # write); if one does, that invariant broke upstream, and a
+            # rebuild or a patch would lose merges
+            dirty = res.get("dirty")
+            if res.get("written") and (
+                    patch is None or dirty is None
+                    or len(self._dirty_rows(dirty, patch))):
+                raise RuntimeError(
+                    f"{fam} mirror invalidated with unflushed merge data "
+                    "(flush-before-touch invariant broken upstream)")
+            if patch is None:
                 self.mirror_rebuilds[fam] += 1
-                res = patch = None
+                res = None
             else:
                 self.mirror_patches[fam] += 1
         cap = self._sp_size(n)
@@ -1267,16 +1299,23 @@ class TorchMergeEngine:
             cap = res["cap"]
         if patch is not None and len(patch):
             self._patch_rows(store, fam, cols, patch)
-        # a fresh build starts clean (dirty=[]: host == device); a reused
-        # or grown mirror keeps its flush state (the micro path appends
-        # touched rows between flushes, a bulk merge marks it whole)
+        # a fresh build starts clean (host == device); a reused or grown
+        # mirror keeps its flush state (the micro path marks touched rows
+        # between flushes, a bulk merge marks the plane whole)
         self._res[fam] = {"cols": cols, "n": n, "cap": cap, "ver": ver,
                           "src": res.get("src") if res else None,
                           "written": res.get("written", set()) if res
                           else set(),
                           "recon": res.get("recon") if res else None,
-                          "dirty": res.get("dirty") if res else []}
+                          "dirty": res.get("dirty") if res else _CLEAN}
         return cols, cap
+
+    @staticmethod
+    def _dirty_rows(dirty: np.ndarray, rows: np.ndarray) -> np.ndarray:
+        """Those of `rows` newer on the device than on the host, by a
+        row-tracked family's dirty mask."""
+        rows = rows[rows < len(dirty)]
+        return rows[dirty[rows]]
 
     def _patch_rows(self, store: KeySpace, fam: str, cols: dict,
                     rows: np.ndarray) -> None:
@@ -1365,6 +1404,72 @@ class TorchMergeEngine:
                                     or res.get("src") is not None):
                 return True
         return False
+
+    def key_dirty_rows(self, store: KeySpace, kid: int,
+                       families) -> Optional[dict]:
+        """The rows of key `kid` (-1: an absent key, which has none) in
+        `families` that are newer on the device than on the host: {fam:
+        sorted rows}, naming only families that have some (empty: the key
+        reads the same from the host).  None when no key flush can serve:
+        a family's whole plane is dirty (a bulk merge since the last
+        flush) or tensor payloads are.  Costs the key's rows, not the
+        dirty set's: each looks up the family's dirty mask."""
+        out = {}
+        if not self.needs_flush:
+            return out
+        for fam in families:
+            if fam == "tns":
+                if any(p["dirty"] for p in self._tns_pools.values()):
+                    return None
+                continue
+            res = self._res.get(fam)
+            if res is None or not res["n"]:
+                continue
+            dirty = res.get("dirty")
+            if dirty is None:
+                return None
+            if kid < 0:
+                continue
+            rows = self._dirty_rows(dirty, store.rows_of_keys(fam, (kid,)))
+            if len(rows):
+                out[fam] = rows
+        return out
+
+    def flush_key(self, store: KeySpace, rows_by_fam: dict) -> None:
+        """Write back only the given rows (a key's, from `key_dirty_rows`),
+        as the dirty-row flush writes them: the downloaded columns, the
+        winners rebuilt from the value pool, the counter-sum delta.  Every
+        other row, the value pool and the tensor payloads stay resident
+        for the next whole flush, which also queues the element garbage
+        of the rows' advanced deletes (every GC pass flushes whole first).
+        The rows then leave the dirty set and their src entries clear, so
+        no later flush writes pool winners over what the host writes to
+        them next.  Timed in the span `engine.flush_key`."""
+        self._join_staging()
+        with trace.span("engine.flush_key", into=self.spans):
+            started = []
+            for fam, rows in rows_by_fam.items():
+                res = self._res[fam]
+                fp, idx = self._gather_rows(fam, res, rows)
+                self.flush_rows_full_equiv += res["n"]
+                started.append((fam, rows, idx,
+                                {name: self._start_get(t)
+                                 for name, t in fp.items()}))
+            if self.device.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(self.device))
+                ev.synchronize()
+            for fam, rows, idx, hosts in started:
+                res = self._res[fam]
+                host = {}
+                for name, h in hosts.items():
+                    self.bytes_d2h += h.numel() * h.element_size()
+                    host[name] = h.numpy()
+                self._apply_dirty(store, fam, res, host, rows)
+                res["dirty"][rows] = False
+                src = res.get("src")
+                if src is not None and idx is not None:
+                    src.index_fill_(0, idx, -1)
 
     @staticmethod
     def _micro_touched(resolved) -> set:
@@ -1634,8 +1739,8 @@ class TorchMergeEngine:
                     rows: np.ndarray) -> None:
         """Fold a micro scatter's results into the family record: the
         updated columns, src/recon tracking, the written columns, and the
-        touched rows appended to the dirty set (a bulk-merged plane,
-        dirty None, stays whole)."""
+        touched rows marked in the dirty mask (a bulk-merged plane, dirty
+        None, stays whole)."""
         res = self._res[fam]
         res["cols"].update(cols)
         if src is not None:
@@ -1644,8 +1749,13 @@ class TorchMergeEngine:
             res["recon"] = dict(recon) if res.get("recon") is None \
                 else {**res["recon"], **recon}
         res["written"] |= written
-        if res.get("dirty") is not None:
-            res["dirty"].append(np.asarray(rows))
+        m = res.get("dirty")
+        if m is not None:
+            if len(m) < res["cap"]:
+                grown = np.zeros(res["cap"], dtype=bool)
+                grown[:len(m)] = m
+                res["dirty"] = m = grown
+            m[np.asarray(rows)] = True
         self.needs_flush = True
 
     def _recompute_sums(self, store: KeySpace) -> None:

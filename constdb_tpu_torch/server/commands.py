@@ -399,7 +399,10 @@ def apply_replicated(node: "Node", name: bytes, args: list, origin_nodeid: int,
                      uuid: int, cause: str = "read") -> Msg:
     """Replication-path dispatch with the originator's identity
     (reference Cmd::exec_detail with repl=false, pull.rs:184-235).
-    `cause`: why the flush before it runs (Node.ensure_flushed)."""
+    `cause`: why the whole flush before it runs (Node.ensure_flushed).
+    A key-scoped barrier flushes the rows of its key alone, none when
+    the key is absent (Node.ensure_flushed_for_key): it reads nothing
+    else."""
     cmd = COMMANDS.get(name)
     if cmd is None:
         cmd = COMMANDS.get(name.lower())
@@ -408,7 +411,16 @@ def apply_replicated(node: "Node", name: bytes, args: list, origin_nodeid: int,
     if cmd.flags & CMD_CLIENT_ONLY:
         raise InvalidRequestMsg(f"'{name.decode()}' cannot come from a replica")
     node.stats.cmds_replicated += 1
-    node.ensure_flushed(cause)
+    key = None
+    if cmd.name in KEY_SCOPED_BARRIERS and args:
+        try:
+            key = as_bytes(args[0])
+        except CstError:
+            pass
+    if key is not None:
+        node.ensure_flushed_for_key(node.ks.lookup(key), cmd.families, cause)
+    else:
+        node.ensure_flushed(cause)
     node.hlc.observe(uuid)
     ctx = ExecCtx(uuid, origin_nodeid, True, None)
     if cmd.is_write:

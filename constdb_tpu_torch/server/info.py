@@ -13,8 +13,9 @@ device name, and the kernel launch counts of ops/kernels.py) and are left
 out when the engine is not on a card; there is no `engine_degraded` (the
 port's engine factory never falls back).  Every other section and field
 keeps the reference's name.  One section is the port's own and shows only
-when asked by name, `INFO trace`: the engine's flushes by cause and
-Python's collector (utils/trace.py).
+when asked by name, `INFO trace`: the engine's flushes by cause, the
+key-scoped barriers that needed none, and Python's collector
+(utils/trace.py).
 """
 
 from __future__ import annotations
@@ -450,13 +451,16 @@ SECTIONS = {
 
 def _section_trace(node, out) -> None:
     """The program's counters (utils/trace.py): the engine's flushes that
-    ran, by cause (engine/base.py FLUSH_CAUSES), and Python's collector,
-    process-wide: its passes and seconds."""
+    ran, by cause (engine/base.py FLUSH_CAUSES), the key-scoped barriers
+    that needed none, and Python's collector, process-wide: its passes
+    and seconds."""
     spans = getattr(node.engine, "spans", None)
     for cause in FLUSH_CAUSES:
         out.append((f"engine_flushes_{cause}",
                     0 if spans is None
                     else spans.value(f"engine.flushes.{cause}")))
+    out.append(("engine_barriers_clean",
+                0 if spans is None else spans.value("engine.barriers_clean")))
     t = trace.gc_totals()
     out.append(("gc_collections", t["gc.collections"]))
     out.append(("gc_seconds_total", round(t["gc.seconds"], 6)))

@@ -316,8 +316,10 @@ class Node:
     def apply_replicated(self, name: bytes, args: list, origin_nodeid: int,
                          uuid: int, cause: str = "read"):
         """One command from a peer's replication stream.  `cause`: why its
-        flush of device-resident state runs (see `ensure_flushed`): a
-        barrier of a coalesced stream passes "barrier"."""
+        whole flush of device-resident state runs (see `ensure_flushed`;
+        a key-scoped barrier flushes its key's rows alone,
+        `ensure_flushed_for_key`): a barrier of a coalesced stream passes
+        "barrier"."""
         from .commands import apply_replicated
         return apply_replicated(self, name, args, origin_nodeid, uuid, cause)
 
@@ -559,12 +561,36 @@ class Node:
     def ensure_flushed(self, cause: str = "read") -> None:
         """Sync device-resident merge state back to the host keyspace
         before any read/write of the numeric plane.  `cause`: why
-        (engine/base.py FLUSH_CAUSES: a replicated barrier's flush is
-        "barrier", every other reader's "read")."""
+        (engine/base.py FLUSH_CAUSES: a replicated barrier's whole flush
+        is "barrier", every other reader's "read")."""
         engine = self.engine
         if getattr(engine, "needs_flush", False):
             with trace.span("node.ensure_flushed", into=self.stats.spans):
                 flush_for(engine, self.ks, cause)
+
+    def ensure_flushed_for_key(self, kid: int, families,
+                               cause: str = "read") -> None:
+        """The flush before a key-scoped barrier (commands.py
+        KEY_SCOPED_BARRIERS), which reads and writes `families` of key
+        `kid` alone (-1: an absent key, which has no rows to read): only
+        that key's device-newer rows write back (counter
+        `engine.flushes.barrier_key`), or nothing when it has none
+        (counter `engine.barriers_clean`).  The whole flush under `cause`
+        when the engine has no key probe, or its probe cannot serve (a
+        plane whole-dirty after a bulk merge)."""
+        engine = self.engine
+        if not getattr(engine, "needs_flush", False):
+            return
+        probe = getattr(engine, "key_dirty_rows", None)
+        rows = None if probe is None else probe(self.ks, kid, families)
+        if rows is None:
+            self.ensure_flushed(cause)
+        elif rows:
+            with trace.span("node.ensure_flushed", into=self.stats.spans):
+                trace.count("engine.flushes.barrier_key", into=engine.spans)
+                engine.flush_key(self.ks, rows)
+        else:
+            trace.count("engine.barriers_clean", into=engine.spans)
 
     def ensure_flushed_for(self, families) -> None:
         """Flush only when unflushed device-resident state actually

@@ -421,6 +421,186 @@ def test_steady_resolves_from_the_device_and_the_environment(monkeypatch):
     assert TorchMergeEngine(resident=True, device="cpu").warmup == 5
 
 
+# ------------------------------------------------- key-scoped barriers
+# A replicated key-scoped barrier (commands.py KEY_SCOPED_BARRIERS) on a
+# resident steady engine writes back only its key's dirty rows
+# (Node.ensure_flushed_for_key, TorchMergeEngine.flush_key); the same
+# script on a CpuMergeEngine node is the oracle.
+
+_BAR_FRAMES = W._stream_frames(1250, 30, seed=31)[:1200]
+
+
+def _mv_batch():
+    """Two MV siblings of key b"mv1" as a micro batch (rows may repeat per
+    slot), so their element rows ride a steady round."""
+    from constdb_tpu_torch.engine.base import batch_from_keyspace
+    from constdb_tpu_torch.resp import message as PM
+    from constdb_tpu_torch.server.node import Node
+    src = Node(node_id=5, engine=CpuMergeEngine(), clock=lambda: W.MS0)
+    u0 = _BAR_FRAMES[0][3] - 10   # older than every barrier
+    for i, (clock, val) in enumerate(((b"1:1", b"a"), (b"2:1", b"b"))):
+        src.apply_replicated(b"mvwrite", [PM.Bulk(b"mv1"), PM.Bulk(clock),
+                                          PM.Bulk(val)], i + 1, u0 + i)
+    b = batch_from_keyspace(src.ks, include_deletes=False)
+    b.rows_unique_per_slot = False
+    return b
+
+
+def _last_key(lo, hi, prefix):
+    return [f[1] for f in _BAR_FRAMES[lo:hi] if f[1][:1] == prefix][-1]
+
+
+def _key_not_in(lo, hi, prefix, since=0):
+    seen = {f[1] for f in _BAR_FRAMES[lo:hi]}
+    return next(f[1] for f in _BAR_FRAMES[since:lo]
+                if f[1][:1] == prefix and f[1] not in seen)
+
+
+def _redirtied_key():
+    later = {f[1] for f in _BAR_FRAMES[600:] if f[0] == b"sadd"}
+    return next(f[1] for f in reversed(_BAR_FRAMES[:600])
+                if f[0] == b"sadd" and f[1] in later)
+
+
+# case -> (steps, (whole barrier flushes, key flushes, clean barriers));
+# a step is ("land", lo, hi) | ("bar", name, key, *args) | ("flush",) |
+# ("bulk",) | ("mv",)
+_BARRIER_CASES = {
+    "delset-dirty": ([("land", 0, 600), ("bar", b"delset",
+                                         _last_key(0, 600, b"s")),
+                      ("land", 600, 1200)], (0, 1, 0)),
+    "delset-clean": ([("land", 0, 600), ("flush",), ("land", 600, 700),
+                      ("bar", b"delset", _key_not_in(600, 700, b"s")),
+                      ("land", 700, 1200)], (0, 0, 1)),
+    "deldict-dirty": ([("land", 0, 600), ("bar", b"deldict",
+                                          _last_key(0, 600, b"h")),
+                       ("land", 600, 1200)], (0, 1, 0)),
+    "deldict-clean": ([("land", 0, 600), ("flush",), ("land", 600, 700),
+                       ("bar", b"deldict", _key_not_in(600, 700, b"h")),
+                       ("land", 700, 1200)], (0, 0, 1)),
+    # expireat reads the envelope alone, which the steady path keeps on
+    # the host: clean with its key's element rows dirty, too
+    "expireat-dirty": ([("land", 0, 600),
+                        ("bar", b"expireat", _last_key(0, 600, b"s"),
+                         (W.MS0 + 5000) << 22),
+                        ("land", 600, 1200)], (0, 0, 1)),
+    "expireat-clean": ([("land", 0, 600), ("flush",), ("land", 600, 700),
+                        ("bar", b"expireat", _key_not_in(600, 700, b"s"),
+                         (W.MS0 + 5000) << 22),
+                        ("land", 700, 1200)], (0, 0, 1)),
+    # the second write to sibling 2:1 overwrites the add side and value
+    # of a row whose device winner the key flush just wrote back; the
+    # siblings' first writes then land again and lose, which dirties
+    # their rows with no new winner
+    "mvwrite-dirty": ([("land", 0, 300), ("mv",),
+                       ("bar", b"mvwrite", b"mv1", b"2:1", b"c"),
+                       ("bar", b"mvwrite", b"mv1", b"1:2,2:1", b"d"),
+                       ("mv",), ("land", 300, 600)], (0, 1, 1)),
+    "mvwrite-clean": ([("mv",), ("flush",), ("land", 300, 600),
+                       ("bar", b"mvwrite", b"mv1", b"1:2,2:1", b"d"),
+                       ("land", 600, 900)], (0, 0, 1)),
+    # an absent key has no rows to flush; the barrier creates it (and
+    # mvwrite a row of it) on the host, which later rounds patch in
+    "delset-absent": ([("land", 0, 600), ("bar", b"delset", b"s999999"),
+                       ("land", 600, 1200)], (0, 0, 1)),
+    "mvwrite-absent": ([("land", 0, 600),
+                        ("bar", b"mvwrite", b"mv2", b"1:1", b"z"),
+                        ("land", 600, 900),
+                        ("bar", b"mvwrite", b"mv2", b"1:2", b"y"),
+                        ("land", 900, 1200)], (0, 0, 2)),
+    # the key's rows dirty again after its key flush, then a whole flush
+    "redirty-then-whole": ([("land", 0, 600),
+                            ("bar", b"delset", _redirtied_key()),
+                            ("land", 600, 1200), ("flush",),
+                            ("land", 0, 300)], (0, 1, 0)),
+    "non-scoped-between": ([("land", 0, 600),
+                            ("bar", b"delset", _last_key(0, 600, b"s")),
+                            ("bar", b"set", _last_key(0, 600, b"r"), b"x"),
+                            ("land", 600, 900),
+                            ("bar", b"delset", _last_key(600, 900, b"s")),
+                            ("land", 900, 1200)], (1, 2, 0)),
+    "bulk-fallback": ([("land", 0, 300), ("bulk",),
+                       ("bar", b"delset", _last_key(0, 300, b"s")),
+                       ("land", 300, 600)], (1, 0, 0)),
+}
+
+
+def _run_barrier_script(node, steps):
+    from constdb_tpu_torch.resp import message as PM
+    last = 0
+    for step in steps:
+        if step[0] == "land":
+            _, lo, hi = step
+            for i in range(lo, hi, 32):
+                node.merge_batches([W._stream_batch(
+                    _BAR_FRAMES[i:min(i + 32, hi)])])
+            last = _BAR_FRAMES[hi - 1][3]
+        elif step[0] == "bar":
+            last += 1
+            args = [PM.Int(a) if isinstance(a, int) else PM.Bulk(a)
+                    for a in step[2:]]
+            node.apply_replicated(step[1], args, 2, last, cause="barrier")
+        elif step[0] == "flush":
+            node.ensure_flushed()
+        elif step[0] == "bulk":
+            node.merge_batches(W.make_workload(200, 2, seed=4))
+        else:
+            node.merge_batches([_mv_batch()])
+
+
+@pytest.mark.parametrize("case", list(_BARRIER_CASES))
+def test_key_scoped_barrier_matches_the_cpu_engine(case):
+    """A replicated key-scoped barrier on a resident steady engine flushes
+    only its key's dirty rows (none, or an absent key: nothing; a plane
+    whole-dirty after a bulk merge: the whole engine), and the keyspace,
+    the counter sums and what GC then frees equal the CPU engine's; the
+    hit counters count each barrier once."""
+    from constdb_tpu_torch.server.node import Node
+    steps, want = _BARRIER_CASES[case]
+    got = Node(node_id=1, engine=port_engine(), clock=lambda: W.MS0)
+    ref = Node(node_id=1, engine=CpuMergeEngine(), clock=lambda: W.MS0)
+    for node in (got, ref):
+        _run_barrier_script(node, steps)
+    value = got.engine.spans.value
+    assert (value("engine.flushes.barrier"),
+            value("engine.flushes.barrier_key"),
+            value("engine.barriers_clean")) == want
+    assert got.engine.dev_rounds_resident > 0
+    assert got.canonical() == ref.canonical()
+    assert sums(got.ks) == sums(ref.ks)
+    horizon = (W.MS0 + 10_000) << 22
+    assert got.ks.gc(horizon) == ref.ks.gc(horizon)
+    assert got.ks.canonical() == ref.ks.canonical()
+    got.engine.close()
+
+
+@pytest.mark.parametrize("key_flushed", [False, True],
+                         ids=["unflushed", "key-flushed"])
+def test_a_host_write_over_rows_still_dirty_raises(key_flushed):
+    """A key-confined host write (KeySpace.touch_key) over rows the device
+    still holds newer breaks flush-before-touch: the next round that
+    patches the mirror raises rather than lose the device's merges.
+    After the key's flush (Node.ensure_flushed_for_key) the same write
+    patches in."""
+    from constdb_tpu_torch.server.node import Node
+    node = Node(node_id=1, engine=port_engine(), clock=lambda: W.MS0)
+    _run_barrier_script(node, [("land", 0, 600)])
+    kid = node.ks.lookup(_last_key(0, 600, b"s"))
+    assert len(node.engine.key_dirty_rows(node.ks, kid, ("el",))["el"])
+    if key_flushed:
+        node.ensure_flushed_for_key(kid, ("el",))
+        assert node.engine.key_dirty_rows(node.ks, kid, ("el",)) == {}
+    node.ks.touch_key(kid, "el")
+    patches = node.engine.mirror_patches["el"]
+    if key_flushed:
+        _run_barrier_script(node, [("land", 600, 1200)])
+        assert node.engine.mirror_patches["el"] == patches + 1
+    else:
+        with pytest.raises(RuntimeError, match="flush-before-touch"):
+            _run_barrier_script(node, [("land", 600, 1200)])
+    node.engine.close()
+
+
 # ------------------------------------------------------------- the slice
 
 

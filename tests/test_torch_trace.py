@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from constdb_tpu_torch import workload as W
+from constdb_tpu_torch.crdt import semantics as S
+from constdb_tpu_torch.engine.cpu import CpuMergeEngine
 from constdb_tpu_torch.engine.base import FLUSH_CAUSES, flush_for
 from constdb_tpu_torch.engine.cuda import TorchMergeEngine
 from constdb_tpu_torch.parallel.host_pool import engine_secs
@@ -202,6 +204,94 @@ def test_a_flush_counts_only_when_it_runs():
     assert value("engine.flushes.release") == 0
     assert value("engine.flushes.barrier") == 0
     assert node.stats.spans.snapshot()["node.ensure_flushed"].count == 2
+
+
+def test_key_scoped_barriers_count_by_outcome(monkeypatch):
+    """A scripted stream through a coalescing applier on a resident steady
+    engine: a delset whose key has device-newer rows flushes those rows
+    alone, one whose key has none (or is absent) flushes nothing, a
+    non-scoped barrier flushes the whole engine; each counts once (none
+    while the engine defers nothing), INFO trace shows the counts, and
+    the keyspace equals the CPU engine's."""
+    from constdb_tpu_torch.server import commands
+    monkeypatch.setattr(commands, "now_ms", lambda: W.MS0)
+
+    def run(engine):
+        node = Node(node_id=1, engine=engine, clock=lambda: W.MS0)
+        ap = CoalescingApplier(node, ReplicaMeta("p:1"), max_frames=64,
+                               max_latency=999.0)
+        script = [(b"sadd", b"s1", b"m1", b"m2"), (b"sadd", b"s2", b"m3"),
+                  (b"sadd", b"s3", b"m4"), None,
+                  (b"sadd", b"s1", b"m5"), (b"sadd", b"s2", b"m6"),
+                  (b"delset", b"s1"),      # s1 pending: lands, key flush
+                  (b"delset", b"s3"),      # s3 flushed before: clean
+                  (b"delset", b"s9"),      # absent: no rows, clean
+                  (b"sadd", b"s2", b"m7"), (b"sadd", b"s3", b"m8"),
+                  (b"delset", b"s3"),      # s3 pending: lands, key flush
+                  (b"expire", b"s2", 100),  # not key-scoped: whole flush
+                  (b"delset", b"s2")]      # nothing deferred: no count
+        i = 0
+        for step in script:
+            if step is None:
+                ap.flush()
+                node.ensure_flushed()
+                continue
+            i += 1
+            ap.apply(frame(u(i - 1) if i > 1 else 0, u(i), *step))
+        ap.flush()
+        return node
+
+    node = run(TorchMergeEngine(resident=True, steady=True, warmup=0,
+                                device="cpu"))
+    value = node.engine.spans.value
+    assert {c: value(f"engine.flushes.{c}") for c in FLUSH_CAUSES} == \
+        {c: {"read": 1, "barrier": 1, "barrier_key": 2}.get(c, 0)
+         for c in FLUSH_CAUSES}
+    assert value("engine.barriers_clean") == 2
+    text = node.execute(PM.Arr([PM.Bulk(b"info"),
+                                PM.Bulk(b"trace")])).val.decode()
+    lines = dict(ln.split(":", 1) for ln in text.split("\r\n")
+                 if ln and not ln.startswith("#"))
+    assert lines["engine_flushes_barrier_key"] == "2"
+    assert lines["engine_flushes_barrier"] == "1"
+    assert lines["engine_barriers_clean"] == "2"
+    assert node.canonical() == run(CpuMergeEngine()).canonical()
+
+
+def test_an_engine_without_the_key_probe_flushes_whole():
+    """An engine with deferred state and no key probe takes the whole
+    flush before a key-scoped barrier (counted under its cause); a
+    non-resident engine defers nothing, so nothing flushes."""
+    class Deferring(CpuMergeEngine):
+        def __init__(self):
+            self.spans = trace.Totals()
+            self.needs_flush = False
+            self.flushed = 0
+
+        def merge_many(self, store, batches):
+            st = super().merge_many(store, batches)
+            self.needs_flush = True
+            return st
+
+        def flush(self, store):
+            self.flushed += 1
+            self.needs_flush = False
+
+    for engine, flushed in ((Deferring(), 1),
+                            (TorchMergeEngine(resident=False,
+                                              device="cpu"), 0)):
+        node = Node(node_id=1, engine=engine, clock=lambda: W.MS0)
+        node.merge_batches(W.make_workload(100, 2, seed=5))
+        kid = next(k for k in range(node.ks.keys.n)
+                   if node.ks.enc_of(k) == S.ENC_SET)
+        node.apply_replicated(b"delset", [PM.Bulk(node.ks.key_bytes[kid])],
+                              2, u(5), cause="barrier")
+        value = engine.spans.value
+        assert (value("engine.flushes.barrier"),
+                value("engine.flushes.barrier_key"),
+                value("engine.barriers_clean")) == (flushed, 0, 0)
+        assert getattr(engine, "flushed", 0) == flushed
+        assert int(node.ks.keys.dt[kid]) == u(5)
 
 
 def test_no_label_and_no_record_while_off(monkeypatch):
