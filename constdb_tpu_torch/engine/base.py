@@ -32,6 +32,12 @@ _I64 = np.int64
 # the key-scoped barriers whose key had nothing to write back)
 FLUSH_CAUSES = ("barrier", "read", "pool_bytes", "pool_ceiling", "pre_bulk",
                 "release", "drop_family", "barrier_key")
+# why a steady round of a coalesced batch stayed on the Python micro path
+# instead of the native planner (engine/cuda.py merge_stream; counters
+# `engine.micro_python.<cause>` beside `engine.micro_planned`): it held
+# tensor rows, a cold family (one merging on its host twin), or a device
+# env mirror that a forced-fold catch-up left
+MICRO_PYTHON_CAUSES = ("tns", "cold", "env_mirror")
 
 
 def flush_for(engine, store: KeySpace, cause: str) -> None:
@@ -189,6 +195,21 @@ def concat_batches(batches: list) -> ColumnarBatch:
     if all(b.el_has_vals is False for b in batches):
         out.el_has_vals = False
     return out
+
+
+def touched_families(b: "ColumnarBatch") -> set:
+    """The device families a micro round of `b` merges (env is host-side
+    in a steady round and never gates its routing)."""
+    fams = set()
+    if b.n_keys and has_values(b.reg_val):
+        fams.add("reg")
+    if len(b.cnt_ki):
+        fams.add("cnt")
+    if len(b.el_ki):
+        fams.add("el")
+    if len(b.tns_ki):
+        fams.add("tns")
+    return fams
 
 
 def has_values(vals: list) -> bool:

@@ -83,7 +83,8 @@ from ..ops import segment as K
 from ..store.keyspace import KeySpace
 from ..utils import trace
 from ..utils.device import resolve_device
-from .base import ColumnarBatch, MergeStats, flush_for, has_values
+from .base import (ColumnarBatch, MergeStats, flush_for, has_values,
+                   touched_families)
 from .hostbatch import HOST_MICRO_MAX
 
 log = logging.getLogger(__name__)
@@ -98,6 +99,12 @@ FOLD_MODES = ("auto", "cuda", "eager", "off")
 FAMILIES = ("env", "reg", "cnt", "el", "tns")
 # pinned staging slots of the steady rounds' packed uploads
 STAGE_RING = 4
+# the host columns the round planner writes, in its order
+# (native/planner.cpp plan_round)
+_PLAN_KEY_COLS = ("enc", "ct", "mt", "dt", "expire", "rv_t", "rv_node",
+                  "cnt_sum")
+_PLAN_CNT_COLS = ("kid", "node", "val", "uuid", "base", "base_t")
+_PLAN_EL_COLS = ("kid", "add_t", "add_node", "del_t")
 
 
 class _Stack(NamedTuple):
@@ -136,6 +143,15 @@ _FAMILIES = {
             ("base_t", K.NEUTRAL_T)],
     "el": [("add_t", 0), ("add_node", 0), ("del_t", 0)],
 }
+
+
+# a planned round's segments (native/planner.cpp: kind, family code) ->
+# (family, the planes they scatter into), in _merge_micro_resident's terms
+_PLAN_SEGS = {(KN.PAIR_SRC, 0): ("reg", ("rv_t", "rv_node")),
+              (KN.PAIR_SRC, 1): ("cnt", ("uuid", "val")),
+              (KN.PAIR, 1): ("cnt", ("base_t", "base")),
+              (KN.PAIR_SRC, 2): ("el", ("add_t", "add_node")),
+              (KN.MAX1, 2): ("el", ("del_t",))}
 
 
 def _host_table(store: KeySpace, fam: str):
@@ -775,50 +791,19 @@ class TorchMergeEngine:
         # merge if slots are unique within every batch
         self._unique_ok = all(b.rows_unique_per_slot for b in batches)
         self._n0_keys = store.keys.n
-        # pool-id headroom: flush completed rounds BEFORE staging one that
-        # could cross the int32 ceiling (the round boundary is the only
-        # safe flush point)
-        if self.resident and self._pool_size and \
-                self._pool_size + sum(b.n_rows for b in batches) >= \
-                self.POOL_ID_CEILING:
-            log.info("win-source pool near int32 ceiling; flushing before "
-                     "this merge round")
-            flush_for(self, store, "pool_ceiling")
-        # replica snapshots of one keyspace share the key-list object (or
-        # a key_shape token when chunked): resolve each distinct one once
-        memo: dict = {}
-        resolved = []
-        with trace.span("engine.resolve_keys", into=self.spans):
-            for b in batches:
-                mk = b.key_shape if b.key_shape is not None \
-                    else ("id", id(b.keys), id(b.key_enc))
-                kid_of = memo.get(mk)
-                if kid_of is None:
-                    kid_of = self._resolve_keys(store, b, st)
-                    memo[mk] = kid_of
-                resolved.append((b, kid_of))
+        self._pool_headroom(store, sum(b.n_rows for b in batches))
+        resolved = self._resolve_all(store, batches, st)
         if not self._unique_ok and \
                 sum(b.n_rows for b in batches) <= self.HOST_SCATTER_MAX:
             # op-stream micro-batches.  The steady placement merges warm
             # families in place into the resident planes; cold families
             # take their host twins (see _micro_placement)
-            placement = self._micro_placement(store, resolved)
+            fams = set()
+            for b, _ in resolved:
+                fams |= touched_families(b)
+            placement = self._micro_placement(store, fams)
             if placement is not None:
-                with trace.span("engine.micro_round", into=self.spans):
-                    for b, kid_of in resolved:
-                        self._merge_micro_resident(store, b, kid_of, st,
-                                                   placement)
-                    for fam, on_dev in placement.items():
-                        self.micro_rounds[fam][on_dev] += 1
-                    if any(placement.values()):
-                        self.dev_rounds_resident += 1
-                    elif placement:
-                        self.host_micro_rounds += 1
-                # an empty placement (env-only / delete-only round) counts
-                # in neither gauge: no device family was touched
-                if self.needs_flush and \
-                        self._pool_bytes > self.pool_flush_bytes:
-                    flush_for(self, store, "pool_bytes")
+                self._micro_round(store, resolved, st, placement)
                 return st
             # whole-round host fallback (steady off): resident mirrors of
             # the touched planes sync down first
@@ -891,6 +876,226 @@ class TorchMergeEngine:
                 self._pool_bytes > self.pool_flush_bytes:
             flush_for(self, store, "pool_bytes")
         return st
+
+    def _pool_headroom(self, store: KeySpace, n_rows: int) -> None:
+        """Pool-id headroom: flush completed rounds BEFORE staging one that
+        could cross the int32 ceiling (the round boundary is the only
+        safe flush point)."""
+        if self.resident and self._pool_size and \
+                self._pool_size + n_rows >= self.POOL_ID_CEILING:
+            log.info("win-source pool near int32 ceiling; flushing before "
+                     "this merge round")
+            flush_for(self, store, "pool_ceiling")
+
+    def _resolve_all(self, store: KeySpace, batches, st) -> list:
+        """[(batch, kid_of)]: replica snapshots of one keyspace share the
+        key-list object (or a key_shape token when chunked), so each
+        distinct one resolves once."""
+        memo: dict = {}
+        resolved = []
+        with trace.span("engine.resolve_keys", into=self.spans):
+            for b in batches:
+                mk = b.key_shape if b.key_shape is not None \
+                    else ("id", id(b.keys), id(b.key_enc))
+                kid_of = memo.get(mk)
+                if kid_of is None:
+                    kid_of = self._resolve_keys(store, b, st)
+                    memo[mk] = kid_of
+                resolved.append((b, kid_of))
+        return resolved
+
+    def _micro_round(self, store: KeySpace, resolved, st,
+                     placement: dict) -> None:
+        """One steady micro round in Python, batch by batch, under
+        `placement` (_micro_placement)."""
+        with trace.span("engine.micro_round", into=self.spans):
+            for b, kid_of in resolved:
+                self._merge_micro_resident(store, b, kid_of, st, placement)
+            self._count_round(placement)
+        self._pool_bound(store)
+
+    def _count_round(self, placement: dict) -> None:
+        for fam, on_dev in placement.items():
+            self.micro_rounds[fam][on_dev] += 1
+        if any(placement.values()):
+            self.dev_rounds_resident += 1
+        elif placement:
+            self.host_micro_rounds += 1
+        # an empty placement (env-only / delete-only round) counts in
+        # neither gauge: no device family was touched
+
+    def _pool_bound(self, store: KeySpace) -> None:
+        """Bound the win pool's pinned host bytes."""
+        if self.needs_flush and self._pool_bytes > self.pool_flush_bytes:
+            flush_for(self, store, "pool_bytes")
+
+    # ---------------------------------------------- coalesced stream batches
+
+    def merge_stream(self, store: KeySpace, src) -> MergeStats:
+        """Land one coalesced op-stream batch.  `src` is a pending batch
+        with the landing surface of replica/coalesce.py BatchBuilder (a
+        replica/wire.py WireBatch has it too): `finalize()` makes its
+        ColumnarBatch.  A steady round that holds no tensor rows, no cold
+        family and no device env mirror is planned by one native call
+        (`_merge_planned`); any other takes the Python micro round, and
+        an engine off the steady path, or a batch past HOST_SCATTER_MAX
+        rows, takes `merge_many`, as every landing did before.  Each
+        steady round counts once: `engine.micro_planned`, or
+        `engine.micro_python.<cause>` (engine/base.py
+        MICRO_PYTHON_CAUSES)."""
+        if not (self.steady and self.resident) or \
+                src.n_rows > self.HOST_SCATTER_MAX:
+            return self.merge_many(store, [src.finalize()])
+        h0, d0 = self.bytes_h2d, self.bytes_d2h
+        r0, f0 = self.dev_rounds_resident, self.flush_rows_downloaded
+        st = MergeStats()
+        self._unique_ok = False
+        self._n0_keys = store.keys.n
+        self._pool_headroom(store, src.n_rows)
+        fams = src.touched()
+        placement = self._micro_placement(store, fams)
+        if "tns" in fams:
+            cause = "tns"
+        elif "env" in self._res:
+            cause = "env_mirror"
+        elif not all(placement.values()):
+            cause = "cold"
+        else:
+            cause = None
+        if cause is None:
+            trace.count("engine.micro_planned", into=self.spans)
+            self._merge_planned(store, src, st, placement)
+        else:
+            trace.count(f"engine.micro_python.{cause}", into=self.spans)
+            resolved = self._resolve_all(store, [src.finalize()], st)
+            self._micro_round(store, resolved, st, placement)
+        st.dev_upload_bytes = self.bytes_h2d - h0
+        st.dev_download_bytes = self.bytes_d2h - d0
+        st.dev_rounds_resident = self.dev_rounds_resident - r0
+        st.flush_rows_downloaded = self.flush_rows_downloaded - f0
+        return st
+
+    def _merge_planned(self, store: KeySpace, src, st,
+                       placement: dict) -> None:
+        """One steady round planned natively (native/planner.cpp
+        plan_round: the key-delete rule, key, slot and row resolution and
+        creation, the envelope max, the folds, the host del_t advance and
+        the packed upload bytes, in one call).  What holds Python objects
+        or device handles stays here: the blob side lists, a counter rank
+        index that must grow, the resident planes, the value pool, the
+        copy and the K3 launch.  The same winners, rows and pool ids
+        as _merge_micro_resident."""
+        from ..utils.native import load
+        obj, columnar = src.plan_input()
+        bound = src.n_rows          # no table gains more rows than this
+        keys, cnt, el = store.keys, store.cnt, store.el
+        with trace.span("engine.micro_round", into=self.spans):
+            (packed, n64, segs, new_keys, bad, created, new_members,
+             reg_vals, el_vals, counts) = load().ext.plan_round(
+                obj, columnar, store.key_index.handle,
+                store.member_index.handle, store.el_index.handle,
+                keys.reserve(bound, _PLAN_KEY_COLS), keys.n,
+                cnt.reserve(bound, _PLAN_CNT_COLS), cnt.n,
+                el.reserve(bound, _PLAN_EL_COLS), el.n, store.node_rank,
+                store.cnt_rank_rows, store.cnt_rank_hash,
+                store.cnt_rank_live, store.rank_of, S.NEUTRAL_T,
+                store.CNT_WINDOW_DENSE_FLOOR, store.CNT_WINDOW_MIN_FILL)
+            n_keys, n_cnt, n_el, reg_rows, cnt_rows, el_rows = counts
+            keys.set_rows(n_keys)
+            if new_keys:
+                store.key_bytes.extend(new_keys)
+                store.reg_val.extend([None] * len(new_keys))
+            cnt.set_rows(n_cnt)
+            for rank, row0, kids in created:
+                store.cnt_rows_assign(
+                    rank, np.array(kids, dtype=_I64),
+                    np.arange(row0, row0 + len(kids), dtype=_I64))
+            el.set_rows(n_el)
+            if new_members:
+                store.el_member.extend(new_members)
+                store.el_val.extend([None] * len(new_members))
+            st.keys_seen += len(src.keys)
+            st.keys_created += len(new_keys)
+            if bad:
+                for i, held, incoming in bad:
+                    log.error("type conflict merging key %r: local=%s "
+                              "incoming=%s", src.keys[i], held, incoming)
+                st.type_conflicts += len(bad)
+            st.counter_rows += cnt_rows
+            st.elem_rows += el_rows
+            for fam, rows in (("reg", reg_rows), ("cnt", cnt_rows),
+                              ("el", el_rows)):
+                if rows:
+                    self.micro_rows[fam][1] += rows
+            if segs:
+                self._launch_planned(store, packed, n64, segs, reg_vals,
+                                     el_vals)
+            for key, t in src.deletes():
+                store.record_key_delete(key, int(t))
+            self._count_round(placement)
+        self._pool_bound(store)
+
+    def _launch_planned(self, store: KeySpace, packed, n64: int, segs,
+                        reg_vals, el_vals) -> None:
+        """A planned round's segments into the resident planes, as
+        _micro_scatter_pair and _launch_round do for the Python round:
+        each pair segment's mirror, value pool entry (PAIR_SRC) and dirty
+        rows, the element del_t segment's rows queued for GC at flush;
+        then the planner's packed bytes up in one copy and one K3 launch.
+        A round always has a PAIR_SRC segment, whose pool entry keeps the
+        packed bytes alive past the copy."""
+        buf = np.frombuffer(packed, dtype=np.uint8)
+        h64 = buf[:8 * n64].view(_I64)
+        h32 = buf[8 * n64:].view(_I32)
+        placed = []
+        for kind, code, n, o64, ncols, o32 in segs:
+            fam, names = _PLAN_SEGS[kind, code]
+            ids = h32[o32:o32 + n]
+            base = 0
+            if kind == KN.MAX1:
+                self._el_del_touched.append(ids.astype(_I64))
+            else:
+                cols, sp = self._resident_state(store, fam,
+                                                _fam_rows(store, fam))
+                planes = {c: cols[c] for c in names}
+                if kind == KN.PAIR_SRC:
+                    p, q = names
+                    base = int(self._pool_add(
+                        reg_vals if fam == "reg" else
+                        (el_vals if fam == "el" else None),
+                        **{p: h64[o64:o64 + n],
+                           q: h64[o64 + n:o64 + 2 * n]}))
+                    self._micro_done(fam, planes, self._src_state(fam, sp),
+                                     {p: p, q: q}, set(names), ids)
+                else:
+                    self._micro_done(fam, planes, None, None, set(names),
+                                     ids)
+            placed.append((kind, fam, names, n, o64, ncols, o32, base))
+        dev = self._upload_planned(buf)
+        d64 = dev[:8 * n64].view(torch.int64)
+        d32 = dev[8 * n64:].view(torch.int32)
+        out = []
+        for kind, fam, names, n, o64, ncols, o32, base in placed:
+            res = self._res[fam]
+            planes = tuple(res["cols"][c] for c in names)
+            if kind == KN.PAIR_SRC:
+                planes += (res["src"],)
+            out.append(KN.Segment(
+                kind, planes, d32[o32:o32 + n],
+                tuple(d64[o64 + k * n:o64 + (k + 1) * n]
+                      for k in range(ncols)), base))
+        KN.scatter_round(out)
+
+    def _upload_planned(self, buf: np.ndarray) -> torch.Tensor:
+        """A planned round's packed bytes on the device in one copy, from
+        the planner's own bytes: the value pool holds them until the
+        flush, so no staging slot and no event guards them."""
+        self.bytes_h2d += buf.nbytes
+        self.h2d_copies += 1
+        dev = torch.from_numpy(buf)
+        if self.device.type == "cpu":
+            return dev.clone()   # a private copy, as _h2d makes on the CPU
+        return dev.to(self.device, non_blocking=True)
 
     # ------------------------------------------------------ stage pipeline
 
@@ -1251,6 +1456,10 @@ class TorchMergeEngine:
         plane forces a rebuild from host."""
         res = self._res.get(fam)
         ver = store.fam_ver[fam]
+        if res is not None and res.get("ver") == ver and n <= res["cap"]:
+            # fresh and wide enough: the steady rounds' common case
+            res["n"] = n
+            return res["cols"], res["cap"]
         patch = None
         if res is not None and res.get("ver") != ver:
             kids = store.keys_since(fam, res["ver"])
@@ -1471,36 +1680,18 @@ class TorchMergeEngine:
                 if src is not None and idx is not None:
                     src.index_fill_(0, idx, -1)
 
-    @staticmethod
-    def _micro_touched(resolved) -> set:
-        """Device families a micro round merges (env is host-side and never
-        gates the routing)."""
-        from ..utils.tables import nonnull_mask
-        fams = set()
-        for b, _ in resolved:
-            if "reg" not in fams and b.n_keys and \
-                    nonnull_mask(b.reg_val).any():
-                fams.add("reg")
-            if len(b.cnt_ki):
-                fams.add("cnt")
-            if len(b.el_ki):
-                fams.add("el")
-            if len(b.tns_ki):
-                fams.add("tns")
-        return fams
-
-    def _micro_placement(self, store: KeySpace, resolved):
+    def _micro_placement(self, store: KeySpace, fams: set):
         """Per-family steady routing: {fam: True = in place on the device,
-        False = host twin} over the device families this round touches,
-        or None when the steady path is off (the whole-round host
-        fallback).  Families route independently: a warm plane (a fresh
-        resident mirror, or a host version stable for more than `warmup`
-        micro rounds) rides the device while a cold one merges on its host
-        twin."""
+        False = host twin} over the device families `fams` this round
+        touches (engine/base.py touched_families), or None when the
+        steady path is off (the whole-round host fallback).  Families
+        route independently: a warm plane (a fresh resident mirror, or a
+        host version stable for more than `warmup` micro rounds) rides the
+        device while a cold one merges on its host twin."""
         if not (self.steady and self.resident):
             return None
         placement = {}
-        for fam in self._micro_touched(resolved):
+        for fam in fams:
             ver = store.fam_ver[fam]
             if fam == "tns":
                 # the tensor plane's mirror is its payload pool set

@@ -1,7 +1,8 @@
 // CPython extension binding for the staging tables (tables.cpp), CRC-64
 // (crc64.cpp), the RESP parser and encoder (resp.cpp), the pipelined
 // command intake scanner (intake.cpp), the REPLBATCH blob columns
-// (wire.cpp) and the op log's segment scanner (aof.cpp).
+// (wire.cpp), the op log's segment scanner (aof.cpp) and the steady
+// round planner (planner.cpp).
 //
 // The port's own copy of the reference package's native/pyext.cpp, with
 // crc64 added: the reference calls its CRC through ctypes, the port
@@ -23,6 +24,7 @@
 #include "intake.cpp"  // pipelined-command intake engine (py_intake_scan)
 #include "wire.cpp"    // REPLBATCH blob columns (py_wire_{pack,unpack}_blobs)
 #include "aof.cpp"     // AOF segment record scanner + frame decode (py_aof_scan)
+#include "planner.cpp" // one steady landing planned in one call (py_plan_round)
 
 #ifndef CST_ABI_STAMP
 #define CST_ABI_STAMP ""
@@ -366,6 +368,11 @@ PyMethodDef methods[] = {
      " raw]) -> (records, valid_pos); frame records pre-decode to"
      " (2, origin, uuid, name, args) when the classes are given; raw=1"
      " decodes flat all-bulk command arrays to plain bytes args"},
+    {"plan_round", py_plan_round, METH_VARARGS,
+     "plan_round(src, columnar, key_tab, member_tab, el_tab, keycols, "
+     "n_keys, cntcols, n_cnt, elcols, n_el, node_rank, rank_rows, "
+     "rank_hash, rank_live, rank_of, neutral_t, dense_floor, min_fill) -> "
+     "one steady landing's plan (planner.cpp)"},
     {"abi_stamp", py_abi_stamp, METH_NOARGS,
      "abi_stamp() -> sha256 over the sources and flags this module was "
      "built from"},

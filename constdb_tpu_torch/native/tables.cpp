@@ -133,8 +133,21 @@ struct StrTable {
                std::memcmp(arena.data() + offs[id], p, (size_t)len) == 0;
     }
 
-    int64_t lookup(const uint8_t* p, int64_t len) const {
+    // the hash of a key about to be looked up, its first probe slot
+    // prefetched (batch lookups hash every key first, then probe, so the
+    // slots' cache misses overlap)
+    uint64_t prefetch(const uint8_t* p, int64_t len) const {
         uint64_t h = hash_bytes(p, len);
+        __builtin_prefetch(&slots[h & mask]);
+        __builtin_prefetch(&hashes[h & mask]);
+        return h;
+    }
+
+    int64_t lookup(const uint8_t* p, int64_t len) const {
+        return lookup_hashed(p, len, hash_bytes(p, len));
+    }
+
+    int64_t lookup_hashed(const uint8_t* p, int64_t len, uint64_t h) const {
         size_t j = h & mask;
         while (slots[j]) {
             if (hashes[j] == h && eq(slots[j] - 1, p, len)) return slots[j] - 1;
@@ -234,6 +247,13 @@ struct I64Table {
             if (new_ratio < 0.02) new_ratio = 0.02;
             if (new_ratio > 1.0) new_ratio = 1.0;
         }
+    }
+
+    // prefetch the first probe slot of a key about to be read
+    void prefetch(int64_t k) const {
+        size_t j = splitmix64((uint64_t)k) & mask;
+        __builtin_prefetch(&keys[j]);
+        __builtin_prefetch(&vals[j]);
     }
 
     int64_t get(int64_t k, int64_t dflt) const {

@@ -182,7 +182,10 @@ def _check_rc(lib: ctypes.CDLL, kernel: str, rc: int) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of `t`'s card (what
+    torch.cuda.current_stream(t.device).cuda_stream reads, without
+    building a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _check(kernel: str, *tensors: torch.Tensor, dtype=torch.int64) -> None:
@@ -369,25 +372,44 @@ def segment_sum(ids: torch.Tensor, vals: torch.Tensor, n_seg: int,
 
 # planes and batch columns of each segment kind: (planes, cols)
 _ARITY = {PAIR_SRC: (3, 2), PAIR: (2, 2), MAX1: (1, 1)}
+# module-level dtypes: the contract checks compare by identity
+_INT64, _INT32 = torch.int64, torch.int32
+_cards: list = []
+
+
+def _card_count() -> int:
+    """torch.cuda.device_count(), read once (the visible cards of a
+    process do not change)."""
+    if not _cards:
+        _cards.append(torch.cuda.device_count())
+    return _cards[0]
 
 
 def _check_segment(g: Segment) -> None:
+    """K3's contract for one segment, but its tensors' device, which
+    scatter_round checks once across the round."""
     if g.kind not in _ARITY:
         raise ValueError(f"scatter_round: unknown segment kind {g.kind}")
     n_planes, n_cols = _ARITY[g.kind]
     if len(g.planes) != n_planes or len(g.cols) != n_cols:
         raise ValueError(f"scatter_round: kind {g.kind} takes {n_planes} "
                          f"planes and {n_cols} batch columns")
-    int64_planes = g.planes[:2] if g.kind == PAIR_SRC else g.planes
-    _check("scatter_round", *int64_planes, *g.cols)
-    _check("scatter_round", g.idx, *g.planes[2:], dtype=torch.int32)
-    p = g.planes[0]
-    if p.dim() != 1 or any(t.shape != p.shape for t in g.planes):
+    int64s = (*g.planes[:2], *g.cols) if g.kind == PAIR_SRC \
+        else (*g.planes, *g.cols)
+    for group, dtype in ((int64s, _INT64), ((g.idx, *g.planes[2:]), _INT32)):
+        for t in group:
+            if t.dtype is not dtype:
+                raise TypeError(f"scatter_round: expected {dtype}, got "
+                                f"{t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError("scatter_round: inputs must be contiguous")
+    shape = g.planes[0].shape
+    if len(shape) != 1 or any(t.shape != shape for t in g.planes[1:]):
         raise ValueError("scatter_round: planes must be equal-length 1-D")
-    if g.idx.dim() != 1 or any(c.shape != g.idx.shape for c in g.cols):
+    n = g.idx.shape
+    if len(n) != 1 or any(c.shape != n for c in g.cols):
         raise ValueError("scatter_round: batch columns must be n-long 1-D")
-    if g.kind == PAIR_SRC and not 0 <= int(g.base) <= \
-            (1 << 31) - g.idx.shape[0]:
+    if g.kind == PAIR_SRC and not 0 <= int(g.base) <= (1 << 31) - n[0]:
         raise ValueError("scatter_round: base + n must fit int32")
 
 
@@ -406,8 +428,14 @@ def scatter_round(segs) -> None:
         raise ValueError(f"scatter_round: {len(segs)} segments, at most "
                          f"{MAX_SEGMENTS} per launch")
     tensors = [t for g in segs for t in (*g.planes, g.idx, *g.cols)]
-    cpu = _on_cpu(*tensors)
-    if len({t.device for t in tensors}) != 1:
+    n_cuda = sum(t.is_cuda for t in tensors)
+    cpu = not n_cuda and all(t.is_cpu for t in tensors)
+    if not cpu and n_cuda != len(tensors):
+        kinds = {t.device.type for t in tensors}
+        raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+    # one visible card holds every CUDA tensor (Tensor.device is slow)
+    if n_cuda and _card_count() > 1 and \
+            len({t.device for t in tensors}) != 1:
         raise ValueError("scatter_round: segments on different devices")
     for g in segs:
         _check_segment(g)

@@ -194,6 +194,38 @@ class BatchBuilder:
                 vals: list) -> None:
         self.reg_runs.append((ki0, uuids, nodes, vals))
 
+    # ------------------------------------------------------ landing surface
+    # What a landing reads besides finalize() (Node.merge_stream_batch,
+    # TorchMergeEngine.merge_stream; replica/wire.py WireBatch has the same
+    # surface): the planned round reads the pending rows in place.
+
+    @property
+    def del_keys(self) -> list:
+        return list(self._dels)
+
+    def deletes(self):
+        """(key, delete time) of every key-level tombstone, in order."""
+        return self._dels.items()
+
+    def touched(self) -> set:
+        """The device families the batch merges (engine/base.py
+        touched_families of what finalize() would make)."""
+        fams = set()
+        if any(v is not None for run in self.reg_runs for v in run[3]):
+            fams.add("reg")
+        if self.cnt_rows:
+            fams.add("cnt")
+        if any(r[1] for r in self.el_rows):
+            fams.add("el")
+        if self.tns_rows:
+            fams.add("tns")
+        return fams
+
+    def plan_input(self) -> tuple:
+        """(object, columnar) for the native round planner: the builder
+        itself, read in place."""
+        return self, False
+
     # -------------------------------------------------------------- payload
 
     def finalize(self) -> ColumnarBatch:

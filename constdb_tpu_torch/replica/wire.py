@@ -352,6 +352,42 @@ class WireBatch:
         apply_key_delete_rule(self.ks, self.batch, self.check)
         return self.batch
 
+    # the rest of the builder's landing surface (replica/coalesce.py)
+
+    @property
+    def keys(self) -> list:
+        return self.batch.keys
+
+    @property
+    def del_keys(self) -> list:
+        return self.batch.del_keys
+
+    def deletes(self):
+        b = self.batch
+        return zip(b.del_keys, b.del_t.tolist())
+
+    def touched(self) -> set:
+        from ..engine.base import touched_families
+        return touched_families(self.batch)
+
+    def plan_input(self) -> tuple:
+        """(columns, columnar) for the native round planner
+        (native/planner.cpp read_columns): the int columns as int64
+        arrays, the key-delete rule's row marks as a bool array."""
+        b = self.batch
+
+        def i64(a):
+            return np.ascontiguousarray(a, dtype=_I64)
+        check = None if self.check is None else \
+            np.ascontiguousarray(self.check, dtype=bool)
+        return (b.keys, i64(b.key_enc), i64(b.key_ct), i64(b.key_mt),
+                i64(b.key_dt), i64(b.key_expire), b.reg_val, i64(b.reg_t),
+                i64(b.reg_node), i64(b.cnt_ki), i64(b.cnt_node),
+                i64(b.cnt_val), i64(b.cnt_uuid), i64(b.cnt_base),
+                i64(b.cnt_base_t), i64(b.el_ki), b.el_member, b.el_val,
+                i64(b.el_add_t), i64(b.el_add_node), i64(b.el_del_t), check,
+                b.el_has_vals is not False), True
+
 
 def decode_wire_batch(payload: bytes, ks, origin: int,
                       base: int) -> WireBatch:

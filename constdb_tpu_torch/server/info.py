@@ -14,7 +14,8 @@ out when the engine is not on a card; there is no `engine_degraded` (the
 port's engine factory never falls back).  Every other section and field
 keeps the reference's name.  One section is the port's own and shows only
 when asked by name, `INFO trace`: the engine's flushes by cause, the
-key-scoped barriers that needed none, and Python's collector
+key-scoped barriers that needed none, the steady rounds the native
+planner ran and those left on Python by cause, and Python's collector
 (utils/trace.py).
 """
 
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from ..crdt import semantics as S
-from ..engine.base import FLUSH_CAUSES
+from ..engine.base import FLUSH_CAUSES, MICRO_PYTHON_CAUSES
 from ..resp.message import Bulk
 from ..utils import trace
 from .commands import CMD_READONLY, register
@@ -452,15 +453,22 @@ SECTIONS = {
 def _section_trace(node, out) -> None:
     """The program's counters (utils/trace.py): the engine's flushes that
     ran, by cause (engine/base.py FLUSH_CAUSES), the key-scoped barriers
-    that needed none, and Python's collector, process-wide: its passes
-    and seconds."""
+    that needed none, the steady rounds of coalesced batches the native
+    planner ran and those that stayed on Python, by cause
+    (MICRO_PYTHON_CAUSES), and Python's collector, process-wide: its
+    passes and seconds."""
     spans = getattr(node.engine, "spans", None)
+
+    def value(name):
+        return 0 if spans is None else spans.value(name)
     for cause in FLUSH_CAUSES:
         out.append((f"engine_flushes_{cause}",
-                    0 if spans is None
-                    else spans.value(f"engine.flushes.{cause}")))
-    out.append(("engine_barriers_clean",
-                0 if spans is None else spans.value("engine.barriers_clean")))
+                    value(f"engine.flushes.{cause}")))
+    out.append(("engine_barriers_clean", value("engine.barriers_clean")))
+    out.append(("engine_micro_planned", value("engine.micro_planned")))
+    for cause in MICRO_PYTHON_CAUSES:
+        out.append((f"engine_micro_python_{cause}",
+                    value(f"engine.micro_python.{cause}")))
     t = trace.gc_totals()
     out.append(("gc_collections", t["gc.collections"]))
     out.append(("gc_seconds_total", round(t["gc.seconds"], 6)))

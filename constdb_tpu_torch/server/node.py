@@ -458,9 +458,10 @@ class Node:
 
     def merge_stream_batch(self, builder, frames: int) -> None:
         """Land one coalesced replication micro-batch (the steady-state
-        pull path, replica/coalesce.py) through the same engine seam
-        snapshot ingest uses.  `builder.finalize()` evaluates the
-        element-plane key-delete rule against LIVE host dt columns, so
+        pull path, replica/coalesce.py) through the engine's stream entry
+        (`_land_coalesced`).  The element-plane key-delete rule (in
+        `builder.finalize()`, or in the native round planner) reads LIVE
+        host dt columns, so
         unflushed device state COVERING the env plane must flush first —
         the narrow form of the flush-before-read discipline
         `apply_replicated` applies per frame.  A steady-state resident
@@ -469,7 +470,7 @@ class Node:
         flush round-trip between them."""
         with trace.span("node.merge_stream_batch", into=self.stats.spans):
             self.ensure_flushed_for(("env",))
-            self.merge_batches([builder.finalize()])
+            self._land_coalesced(builder, logged=False)
         self.stats.repl_frames_coalesced += frames
         self.stats.repl_coalesce_flushes += 1
 
@@ -483,9 +484,27 @@ class Node:
         repl-logged by the caller, so logged=True keeps the shared
         full-sync dump reusable."""
         self.ensure_flushed_for(("env",))
-        self.merge_batches([builder.finalize()], logged=True)
+        self._land_coalesced(builder, logged=True)
         self.stats.serve_msgs_coalesced += msgs
         self.stats.serve_flushes += 1
+
+    def _land_coalesced(self, builder, logged: bool) -> None:
+        """One coalesced batch (a replica/coalesce.py BatchBuilder or a
+        replica/wire.py WireBatch) through the engine's stream entry,
+        which plans a steady round natively and finalizes the builder
+        itself where it does not (engine/cuda.py merge_stream), or
+        finalized through merge_batches for an engine without one."""
+        land = getattr(self.engine, "merge_stream", None)
+        if land is None:
+            self.merge_batches([builder.finalize()], logged=logged)
+            return
+        with trace.span("node.merge_batches", into=self.stats.spans):
+            self._invalidate_reads((builder,))
+            land(self.ks, builder)
+        self.stats.merges += 1
+        self.stats.merge_rows += builder.n_rows
+        if not logged:
+            self._dump_stale()
 
     def reset_for_full_resync(self, keep_link=None) -> None:
         """Wipe local CRDT state and rejoin as a fresh node (the receive

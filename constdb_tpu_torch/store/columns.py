@@ -57,6 +57,20 @@ class Columns:
             getattr(self, "_" + name)[start:start + n] = arr
         return np.arange(start, start + n, dtype=np.int64)
 
+    def reserve(self, extra: int, names: tuple) -> tuple:
+        """The backing arrays of columns `names`, grown so `extra` more
+        rows fit past n: a native writer appends rows in place, then
+        `set_rows` makes them live."""
+        if self.n + extra > self._cap:
+            self._grow(self.n + extra)
+        return tuple(getattr(self, "_" + name) for name in names)
+
+    def set_rows(self, n: int) -> None:
+        """Make rows [0, n) live after a native writer appended some."""
+        if n != self.n:
+            self.n = n
+            self._drop_views()
+
     def col(self, name: str) -> np.ndarray:
         """Live view of a column (length n)."""
         return getattr(self, name)

@@ -164,6 +164,12 @@ class _ExtStrTable:
     def bytes_of(self, idx: int) -> bytes:
         return self._m.strtab_bytes_of(self._h, idx)
 
+    @property
+    def handle(self):
+        """The table's capsule, for native code that probes it in place
+        (the round planner, native/planner.cpp)."""
+        return self._h
+
 
 class _ExtI64Dict:
     """int64 -> int64 through the C extension."""
@@ -203,6 +209,11 @@ class _ExtI64Dict:
         out = np.empty(len(keys), dtype=_I64)
         n_new = self._m.i64_get_or_assign_batch(self._h, keys, next_val, out)
         return out, n_new
+
+    @property
+    def handle(self):
+        """The table's capsule (see _ExtStrTable.handle)."""
+        return self._h
 
 
 StrTable = _ExtStrTable

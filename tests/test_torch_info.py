@@ -117,7 +117,8 @@ def test_trace_section_counts_flushes_by_cause_and_the_collector():
     import gc
 
     from constdb_tpu_torch import workload
-    from constdb_tpu_torch.engine.base import FLUSH_CAUSES
+    from constdb_tpu_torch.engine.base import (FLUSH_CAUSES,
+                                               MICRO_PYTHON_CAUSES)
     from constdb_tpu_torch.utils.hlc import SEQ_BITS
 
     node = Node(node_id=1, engine=TorchMergeEngine(device="cpu",
@@ -131,13 +132,17 @@ def test_trace_section_counts_flushes_by_cause_and_the_collector():
                                 PM.Bulk(b"trace")])).val.decode()
     assert layout(text) == [("Trace", [f"engine_flushes_{c}"
                                        for c in FLUSH_CAUSES] +
-                             ["engine_barriers_clean", "gc_collections",
-                              "gc_seconds_total"])]
+                             ["engine_barriers_clean",
+                              "engine_micro_planned"] +
+                             [f"engine_micro_python_{c}"
+                              for c in MICRO_PYTHON_CAUSES] +
+                             ["gc_collections", "gc_seconds_total"])]
     lines = dict(ln.split(":", 1) for ln in text.split("\r\n")
                  if ln and not ln.startswith("#"))
     assert {c: lines[f"engine_flushes_{c}"] for c in FLUSH_CAUSES} == \
         {c: "1" if c == "barrier" else "0" for c in FLUSH_CAUSES}
     assert lines["engine_barriers_clean"] == "0"
+    assert lines["engine_micro_planned"] == "0"
     assert int(lines["gc_collections"]) >= 1
     assert float(lines["gc_seconds_total"]) > 0
     full = node.execute(PM.Arr([PM.Bulk(b"info")])).val.decode()

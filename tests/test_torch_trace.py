@@ -2,8 +2,9 @@
 owners' totals, the profiler labels of the staging threads' spans, the
 engine's and the node's timers as views over their span totals after a
 catch-up and a coalesced stream (with its one barrier flush counted by
-cause), no profiler label while tracing is off, none on the per-frame
-path, and the collector's hook."""
+cause), the steady rounds counted by route (the native planner or a
+cause for the Python micro path), no profiler label while tracing is
+off, none on the per-frame path, and the collector's hook."""
 
 import gc
 import threading
@@ -256,6 +257,72 @@ def test_key_scoped_barriers_count_by_outcome(monkeypatch):
     assert lines["engine_flushes_barrier"] == "1"
     assert lines["engine_barriers_clean"] == "2"
     assert node.canonical() == run(CpuMergeEngine()).canonical()
+
+
+def test_steady_rounds_count_by_route(monkeypatch):
+    """Each steady round of a coalesced batch counts once: a round with a
+    cold family (first seen, inside the warm-up), one with tensor rows
+    and one after a forced-fold catch-up left a device env mirror stay on
+    the Python micro path under their cause; every other round is
+    planned natively.  INFO trace shows the counts, and the keyspace
+    equals the CPU engine's."""
+    import numpy as np
+    from constdb_tpu_torch.crdt import tensor as T
+    from constdb_tpu_torch.engine.base import MICRO_PYTHON_CAUSES
+    from constdb_tpu_torch.server import commands
+    monkeypatch.setattr(commands, "now_ms", lambda: W.MS0)
+    cfg = T.pack_config(T.TensorMeta(T.STRATEGY_IDS["sum"], 0, (4,)))
+    pay = np.arange(4, dtype=np.float32).tobytes()
+    rounds = [([(b"sadd", b"s1", b"m1")], "cold"),
+              ([(b"sadd", b"s1", b"m2")], None),
+              ([(b"set", b"r1", b"a"), (b"sadd", b"s2", b"m3")], "cold"),
+              ([(b"set", b"r1", b"b"), (b"cntset", b"c1", 4)], "cold"),
+              ([(b"set", b"r2", b"c"), (b"cntset", b"c1", 5),
+                (b"sadd", b"s1", b"m4")], None),
+              ([(b"tset", b"t1", cfg, 1, pay), (b"set", b"r1", b"d")],
+               "tns"),
+              ([(b"delbytes", b"r2")], None),
+              (W.make_workload(60, 2, seed=3), "env_mirror"),
+              ([(b"sadd", b"s1", b"m5"), (b"cntset", b"c1", 6)], None)]
+
+    def run(engine, check):
+        node = Node(node_id=1, engine=engine, clock=lambda: W.MS0)
+        ap = CoalescingApplier(node, ReplicaMeta("p:1"), max_frames=64,
+                               max_latency=999.0)
+        i = 0
+        want = dict.fromkeys(("planned", *MICRO_PYTHON_CAUSES), 0)
+        for bodies, cause in rounds:
+            if cause == "env_mirror":
+                node.merge_batches(bodies)      # a catch-up, then a round
+                if check:
+                    assert "env" in engine._res
+                bodies = [(b"sadd", b"s3", b"m6")]
+            for body in bodies:
+                i += 1
+                ap.apply(frame(u(i - 1) if i > 1 else 0, u(i), *body))
+            ap.flush()
+            if check:
+                want[cause or "planned"] += 1
+                value = engine.spans.value
+                got = {c: value(f"engine.micro_python.{c}")
+                       for c in MICRO_PYTHON_CAUSES}
+                got["planned"] = value("engine.micro_planned")
+                assert got == want, (bodies, cause)
+        node.ensure_flushed()
+        return node, want
+
+    node, want = run(TorchMergeEngine(resident=True, steady=True, warmup=1,
+                                      dense_fold="eager", device="cpu"),
+                     True)
+    text = node.execute(PM.Arr([PM.Bulk(b"info"),
+                                PM.Bulk(b"trace")])).val.decode()
+    lines = dict(ln.split(":", 1) for ln in text.split("\r\n")
+                 if ln and not ln.startswith("#"))
+    assert lines["engine_micro_planned"] == str(want["planned"]) == "4"
+    assert {c: lines[f"engine_micro_python_{c}"]
+            for c in MICRO_PYTHON_CAUSES} == \
+        {"tns": "1", "cold": "3", "env_mirror": "1"}
+    assert node.canonical() == run(CpuMergeEngine(), False)[0].canonical()
 
 
 def test_an_engine_without_the_key_probe_flushes_whole():
